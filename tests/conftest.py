@@ -69,3 +69,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "validate: Tests that perform long-running validations."
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() "
+        "is false",
+    )

@@ -1,0 +1,144 @@
+"""The torch port's async frame dump, and the port's independence from
+JAX."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy
+import pytest
+import torch
+
+import tpgsd.hoomd
+from tpgsd.parallel import ShardedFrameWriter
+from tpgsd.parallel.comm import SingleComm
+from tpgsd_torch.io_runtime import AsyncDumpRunner, run_dump_loop
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _writer(path):
+    return ShardedFrameWriter(str(path), application="test", comm=SingleComm())
+
+
+def test_runner_snapshots_its_input(tmp_path):
+    """Torch tensors are mutable: a frame must be the tensor's value at
+    submit time, whatever the caller writes to it afterwards."""
+    path = tmp_path / "snap.gsd"
+    x = torch.arange(30, dtype=torch.float32).reshape(10, 3)
+    want = x.clone()
+    with AsyncDumpRunner(_writer(path), depth=1) as dump:
+        for i in range(3):
+            dump.submit({"particles/position": x}, step=i)
+            x.mul_(0)
+            x += float(i + 1)
+    with tpgsd.hoomd.open(str(path), mode="r") as traj:
+        frames = [f.particles.position for f in traj]
+    numpy.testing.assert_array_equal(frames[0], want.numpy())
+    numpy.testing.assert_array_equal(frames[1], numpy.full((10, 3), 1.0))
+    numpy.testing.assert_array_equal(frames[2], numpy.full((10, 3), 2.0))
+
+
+def test_dump_stats_are_populated(tmp_path):
+    x = torch.ones((1000, 3))
+    with AsyncDumpRunner(_writer(tmp_path / "stats.gsd")) as dump:
+        for i in range(4):
+            dump.submit({"particles/position": x, "particles/density": x[:, 0]},
+                        step=i)
+        dump.flush()
+    s = dump.stats
+    assert s.frames == 4
+    assert s.bytes == 4 * (1000 * 3 * 4 + 1000 * 4)
+    assert s.write_seconds > 0 and s.wall_seconds >= s.write_seconds
+    assert s.write_mb_s > 0 and s.effective_mb_s > 0
+    assert 0 < s.overlap_efficiency <= 1
+
+
+class _FailingWriter:
+    def write_frame(self, chunks, step=None):
+        raise OSError("disk full")
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def test_writer_error_surfaces_at_the_next_call():
+    dump = AsyncDumpRunner(_FailingWriter())
+    dump.submit({"particles/position": torch.zeros((2, 3))}, step=0)
+    with pytest.raises(RuntimeError, match="writer failed"):
+        dump.flush()
+    with pytest.raises(ValueError, match="closed"):
+        dump.submit({"particles/position": torch.zeros((2, 3))})
+    dump.close()
+
+
+def test_run_dump_loop_writes_every_step(tmp_path):
+    path = tmp_path / "loop.gsd"
+
+    def step(state):
+        state = state + 1.0
+        return state, (state.sum(),)
+
+    final, stats = run_dump_loop(
+        step, torch.zeros((5, 3)), _writer(path), 3,
+        lambda s, aux, i: {"particles/position": s},
+    )
+    assert stats.frames == 3 and float(final[0, 0]) == 3.0
+    with tpgsd.hoomd.open(str(path), mode="r") as traj:
+        assert [float(f.particles.position[0, 0]) for f in traj] == [1.0, 2.0, 3.0]
+
+
+_NO_JAX = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import os, tempfile
+    import tpgsd.hoomd
+    from tpgsd.parallel import ShardedFrameWriter
+    from tpgsd.parallel.comm import SingleComm
+    from tpgsd_torch.entry import entry
+    from tpgsd_torch.io_runtime import AsyncDumpRunner
+    step, (state,) = entry(n_side=6, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "t.gsd")
+        w = ShardedFrameWriter(path, application="t", comm=SingleComm())
+        with AsyncDumpRunner(w) as dump:
+            for i in range(2):
+                state, (rho, p, ov) = step(state)
+                dump.submit({"particles/position": state.x,
+                             "particles/density": rho}, step=i)
+        with tpgsd.hoomd.open(path, mode="r") as traj:
+            assert len(traj) == 2
+    assert sys.modules["jax"] is None
+    assert not [m for m in sys.modules if m.startswith("jax.")]
+    print("NO_JAX_OK")
+    """
+)
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def test_port_sources_import_no_jax_and_no_jax_package_modules():
+    pattern = re.compile(
+        r"^\s*(import jax|from jax|import tpgsd\.(sph|io_runtime)"
+        r"|from tpgsd\.(sph|io_runtime)|from tpgsd import (sph|io_runtime))",
+        re.M,
+    )
+    sources = sorted((REPO / "tpgsd_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 5
+    offending = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offending == []

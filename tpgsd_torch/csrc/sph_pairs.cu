@@ -1,0 +1,367 @@
+// SPH pair kernels of the two-tier (spill) step, for Hopper (sm_90a).
+//
+// Replaces the four packed Pallas kernels of tpgsd/sph/pallas_ops.py that
+// the summation + spill step runs:
+//   density_pairs  <- _density_kernel_packed, _density_kernel_packed_cross
+//   accel_pairs    <- _accel_kernel_packed,   _accel_kernel_packed_cross
+// A self pass and a cross pass differ only in which tier holds the centres
+// and which holds the neighbours, so one kernel serves both: the caller
+// passes the centre tier and the neighbour tier.
+//
+// Layout: SoA planes [F, C, K] (C cells, x-major; K slots per cell) and a
+// bool live mask [C, K].  Neighbour-cell validity comes from the cell's
+// (ix, iy, iz), so no neighbour table is read.
+//
+// Design: one warp per cell, four cells (a z-run that shares most of its
+// 27 neighbours in L1/L2) per CTA.  Each lane owns centre slot `lane`, and
+// `lane + 32` when K > 32 (K <= 64), and keeps their sums in registers.
+// Each neighbour cell's fields are staged once per warp in shared memory
+// and read back as broadcasts.  What bounds it on the H100 is the pair arithmetic (about 30
+// f32 operations per pair in accel_pairs, one sqrt, one approximate
+// divide) and the re-reads of each neighbour cell by its 27 neighbours,
+// which L2 (50 MB) absorbs.  The occupancy skips of the TPU kernels carry
+// over as warp votes: a cell with no live centre writes zeros at once, a
+// neighbour cell with no live slot is skipped, and a dead neighbour slot
+// is skipped uniformly across the warp.  Pairs beyond the support radius
+// are skipped; their kernel weight is zero.
+//
+// Sums are f32 FMAs in registers; no tensor cores, no TF32.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;         // cells per CTA
+constexpr int kMaxK = 64;         // slots per cell the kernels take
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Kind { kWendlandC2 = 0, kCubicSpline = 1 };
+
+struct Geometry {
+  int nx, ny, nz, k;
+};
+
+// Cubic spline W(r) with sigma (tpgsd/sph/kernels.py CubicSpline.w).
+__device__ __forceinline__ float cubic_w(float r, float h, float sigma) {
+  const float q = r / h;
+  float w = 0.f;
+  if (q < 1.f) {
+    w = 1.f - 1.5f * (q * q) + 0.75f * (q * q * q);
+  } else if (q < 2.f) {
+    const float s = 2.f - q;
+    w = 0.25f * (s * s * s);
+  }
+  return sigma * w;
+}
+
+// -(1/r) dW/dr of the cubic spline (tpgsd/sph/kernels.py dw_over_r).
+__device__ __forceinline__ float cubic_neg_dwr(float r, float h, float sigma) {
+  const float q = r / h;
+  float g = 0.f;
+  if (q < 1.f) {
+    g = -3.f + 2.25f * q;
+  } else if (q < 2.f) {
+    const float s = 2.f - q;
+    g = -0.75f * (s * s) / fmaxf(q, 1e-12f);
+  }
+  return -(sigma * g / (h * h));
+}
+
+__device__ __forceinline__ void cell_coords(int cell, const Geometry& g,
+                                            int& ix, int& iy, int& iz) {
+  iz = cell % g.nz;
+  const int t = cell / g.nz;
+  iy = t % g.ny;
+  ix = t / g.ny;
+}
+
+// rho_i = mfold * m_i * sum_{27 cells} sum_j m_j W'(r_ij), where W' is
+// t^4 (2q+1) for WendlandC2 (sigma folded into mfold) and the full cubic
+// spline W for kind 1 (mfold is then the mass).
+template <int kPer>  // centre slots per lane: 1 (K <= 32) or 2 (K <= 64)
+__global__ void __launch_bounds__(32 * kWarps)
+density_pairs_kernel(const float* __restrict__ xc,
+                     const uint8_t* __restrict__ mc,
+                     const float* __restrict__ xn,
+                     const uint8_t* __restrict__ mn,
+                     float* __restrict__ out, Geometry g, int kind,
+                     float inv2h, float invh2, float mfold, float h,
+                     float sigma, float supp2) {
+  __shared__ float s_x[kWarps][3][kMaxK];
+  __shared__ float s_m[kWarps][kMaxK];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ncell = g.nx * g.ny * g.nz;
+  const int cell = blockIdx.x * kWarps + warp;
+  if (cell >= ncell) return;  // warp-uniform
+  const int K = g.k;
+  const long long plane = (long long)ncell * K;
+  const long long base = (long long)cell * K;
+
+  float cx[kPer], cy[kPer], cz[kPer], cm[kPer], acc[kPer];
+  bool live = false;
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) {
+    const int slot = lane + 32 * s;
+    const bool ok = slot < K;
+    cm[s] = ok ? (float)mc[base + slot] : 0.f;
+    cx[s] = ok ? xc[base + slot] : 0.f;
+    cy[s] = ok ? xc[plane + base + slot] : 0.f;
+    cz[s] = ok ? xc[2 * plane + base + slot] : 0.f;
+    acc[s] = 0.f;
+    live |= cm[s] != 0.f;
+  }
+  if (__any_sync(kFull, live)) {
+    int ix, iy, iz;
+    cell_coords(cell, g, ix, iy, iz);
+    for (int dx = -1; dx <= 1; ++dx) {
+      const int jx = ix + dx;
+      if (jx < 0 || jx >= g.nx) continue;
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int jy = iy + dy;
+        if (jy < 0 || jy >= g.ny) continue;
+        for (int dz = -1; dz <= 1; ++dz) {
+          const int jz = iz + dz;
+          if (jz < 0 || jz >= g.nz) continue;
+          const long long nb = ((long long)(jx * g.ny + jy) * g.nz + jz) * K;
+          bool nlive = false;
+          for (int slot = lane; slot < K; slot += 32) {
+            const float m = (float)mn[nb + slot];
+            s_m[warp][slot] = m;
+            s_x[warp][0][slot] = xn[nb + slot];
+            s_x[warp][1][slot] = xn[plane + nb + slot];
+            s_x[warp][2][slot] = xn[2 * plane + nb + slot];
+            nlive |= m != 0.f;
+          }
+          if (!__any_sync(kFull, nlive)) continue;  // empty neighbour cell
+          __syncwarp();
+          for (int j = 0; j < K; ++j) {
+            const float m = s_m[warp][j];
+            if (m == 0.f) continue;  // uniform across the warp
+            const float yx = s_x[warp][0][j];
+            const float yy = s_x[warp][1][j];
+            const float yz = s_x[warp][2][j];
+#pragma unroll
+            for (int s = 0; s < kPer; ++s) {
+              const float ddx = cx[s] - yx;
+              const float ddy = cy[s] - yy;
+              const float ddz = cz[s] - yz;
+              const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+              if (r2 >= supp2) continue;
+              const float r = sqrtf(r2);
+              float wv;
+              if (kind == kWendlandC2) {
+                const float t = fmaxf(1.f - inv2h * r, 0.f);
+                const float t2 = t * t;
+                wv = (t2 * t2) * (invh2 * r + 1.f);
+              } else {
+                wv = cubic_w(r, h, sigma);
+              }
+              acc[s] = fmaf(m, wv, acc[s]);
+            }
+          }
+          __syncwarp();  // staging of the next cell overwrites s_x/s_m
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) {
+    const int slot = lane + 32 * s;
+    if (slot < K) out[base + slot] = cm[s] != 0.f ? mfold * acc[s] * cm[s] : 0.f;
+  }
+}
+
+// a_i = m_i * sum_j m_j (pt_i + pt_j + cv min(v_ij.x_ij, 0) /
+//       ((r^2 + h2eps)(rho_i + rho_j))) * g(r) * (x_i - x_j)
+// with pt = cfold p / rho^2 pre-scaled by the caller, g = t^3 for
+// WendlandC2 (its constant folded into cfold) and g = -dW/dr / r for the
+// cubic spline.  Output SoA [3, C, K].
+template <int kPer>  // centre slots per lane: 1 (K <= 32) or 2 (K <= 64)
+__global__ void __launch_bounds__(32 * kWarps)
+accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
+                   const float* __restrict__ rhoc,
+                   const float* __restrict__ ptc,
+                   const uint8_t* __restrict__ mc,
+                   const float* __restrict__ xn, const float* __restrict__ vn,
+                   const float* __restrict__ rhon,
+                   const float* __restrict__ ptn,
+                   const uint8_t* __restrict__ mn, float* __restrict__ out,
+                   Geometry g, int kind, float inv2h, float h, float sigma,
+                   float h2eps, float cv, float supp2) {
+  // planes: x, y, z, vx, vy, vz, rho, pt, mask
+  __shared__ float s_f[kWarps][9][kMaxK];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ncell = g.nx * g.ny * g.nz;
+  const int cell = blockIdx.x * kWarps + warp;
+  if (cell >= ncell) return;  // warp-uniform
+  const int K = g.k;
+  const long long plane = (long long)ncell * K;
+  const long long base = (long long)cell * K;
+
+  float cx[kPer], cy[kPer], cz[kPer], cvx[kPer], cvy[kPer], cvz[kPer];
+  float crho[kPer], cpt[kPer], cm[kPer];
+  float ax[kPer], ay[kPer], az[kPer];
+  bool live = false;
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) {
+    const int slot = lane + 32 * s;
+    const bool ok = slot < K;
+    const long long i = base + slot;
+    cm[s] = ok ? (float)mc[i] : 0.f;
+    cx[s] = ok ? xc[i] : 0.f;
+    cy[s] = ok ? xc[plane + i] : 0.f;
+    cz[s] = ok ? xc[2 * plane + i] : 0.f;
+    cvx[s] = ok ? vc[i] : 0.f;
+    cvy[s] = ok ? vc[plane + i] : 0.f;
+    cvz[s] = ok ? vc[2 * plane + i] : 0.f;
+    crho[s] = ok ? rhoc[i] : 1.f;
+    cpt[s] = ok ? ptc[i] : 0.f;
+    ax[s] = ay[s] = az[s] = 0.f;
+    live |= cm[s] != 0.f;
+  }
+  if (__any_sync(kFull, live)) {
+    int ix, iy, iz;
+    cell_coords(cell, g, ix, iy, iz);
+    for (int dx = -1; dx <= 1; ++dx) {
+      const int jx = ix + dx;
+      if (jx < 0 || jx >= g.nx) continue;
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int jy = iy + dy;
+        if (jy < 0 || jy >= g.ny) continue;
+        for (int dz = -1; dz <= 1; ++dz) {
+          const int jz = iz + dz;
+          if (jz < 0 || jz >= g.nz) continue;
+          const long long nb = ((long long)(jx * g.ny + jy) * g.nz + jz) * K;
+          bool nlive = false;
+          for (int slot = lane; slot < K; slot += 32) {
+            const long long j = nb + slot;
+            const float m = (float)mn[j];
+            s_f[warp][8][slot] = m;
+            nlive |= m != 0.f;
+            if (m != 0.f) {
+              s_f[warp][0][slot] = xn[j];
+              s_f[warp][1][slot] = xn[plane + j];
+              s_f[warp][2][slot] = xn[2 * plane + j];
+              s_f[warp][3][slot] = vn[j];
+              s_f[warp][4][slot] = vn[plane + j];
+              s_f[warp][5][slot] = vn[2 * plane + j];
+              s_f[warp][6][slot] = rhon[j];
+              s_f[warp][7][slot] = ptn[j];
+            }
+          }
+          if (!__any_sync(kFull, nlive)) continue;  // empty neighbour cell
+          __syncwarp();
+          for (int j = 0; j < K; ++j) {
+            const float m = s_f[warp][8][j];
+            if (m == 0.f) continue;  // uniform across the warp
+            const float yx = s_f[warp][0][j];
+            const float yy = s_f[warp][1][j];
+            const float yz = s_f[warp][2][j];
+            const float yvx = s_f[warp][3][j];
+            const float yvy = s_f[warp][4][j];
+            const float yvz = s_f[warp][5][j];
+            const float yrho = s_f[warp][6][j];
+            const float ypt = s_f[warp][7][j];
+#pragma unroll
+            for (int s = 0; s < kPer; ++s) {
+              const float ddx = cx[s] - yx;
+              const float ddy = cy[s] - yy;
+              const float ddz = cz[s] - yz;
+              const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+              if (r2 >= supp2) continue;
+              const float r = sqrtf(r2);
+              float gr;
+              if (kind == kWendlandC2) {
+                const float t = fmaxf(1.f - inv2h * r, 0.f);
+                gr = t * t * t;
+              } else {
+                gr = cubic_neg_dwr(r, h, sigma);
+              }
+              const float vdotx = (cvx[s] - yvx) * ddx + (cvy[s] - yvy) * ddy +
+                                  (cvz[s] - yvz) * ddz;
+              const float den = (r2 + h2eps) * (crho[s] + yrho);
+              const float visc = __fdividef(cv * fminf(vdotx, 0.f), den);
+              const float scale = (cpt[s] + ypt + visc) * gr * m;
+              ax[s] = fmaf(scale, ddx, ax[s]);
+              ay[s] = fmaf(scale, ddy, ay[s]);
+              az[s] = fmaf(scale, ddz, az[s]);
+            }
+          }
+          __syncwarp();  // staging of the next cell overwrites s_f
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) {
+    const int slot = lane + 32 * s;
+    if (slot < K) {
+      const bool on = cm[s] != 0.f;
+      out[base + slot] = on ? ax[s] * cm[s] : 0.f;
+      out[plane + base + slot] = on ? ay[s] * cm[s] : 0.f;
+      out[2 * plane + base + slot] = on ? az[s] * cm[s] : 0.f;
+    }
+  }
+}
+
+inline int launch_blocks(int ncell) { return (ncell + kWarps - 1) / kWarps; }
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on `stream`, never synchronises, and returns
+// cudaGetLastError() (0 = launched).  Shapes and dtypes are checked by the
+// Python wrapper (tpgsd_torch/sph/ops.py).
+
+int tpgsd_density_pairs(const float* xc, const uint8_t* mc, const float* xn,
+                        const uint8_t* mn, float* out, int nx, int ny, int nz,
+                        int k, int kind, float inv2h, float invh2,
+                        float mfold, float h, float sigma, float supp2,
+                        void* stream) {
+  const int ncell = nx * ny * nz;
+  if (ncell <= 0 || k <= 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  const Geometry g{nx, ny, nz, k};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 32) {
+    density_pairs_kernel<1><<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
+        xc, mc, xn, mn, out, g, kind, inv2h, invh2, mfold, h, sigma, supp2);
+  } else {
+    density_pairs_kernel<2><<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
+        xc, mc, xn, mn, out, g, kind, inv2h, invh2, mfold, h, sigma, supp2);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
+                      const float* ptc, const uint8_t* mc, const float* xn,
+                      const float* vn, const float* rhon, const float* ptn,
+                      const uint8_t* mn, float* out, int nx, int ny, int nz,
+                      int k, int kind, float inv2h, float h, float sigma,
+                      float h2eps, float cv, float supp2, void* stream) {
+  const int ncell = nx * ny * nz;
+  if (ncell <= 0 || k <= 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  const Geometry g{nx, ny, nz, k};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 32) {
+    accel_pairs_kernel<1><<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
+        xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, kind, inv2h, h,
+        sigma, h2eps, cv, supp2);
+  } else {
+    accel_pairs_kernel<2><<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
+        xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, kind, inv2h, h,
+        sigma, h2eps, cv, supp2);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* tpgsd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
