@@ -146,7 +146,7 @@ def test_dam_break_matches_reference(capacity, headroom):
         n_side=10, capacity=capacity, capacity_headroom=headroom
     )
     got = port_dam_break(
-        n_side=10, capacity=capacity, capacity_headroom=headroom
+        n_side=10, capacity=capacity, capacity_headroom=headroom, device="cpu"
     )
     numpy.testing.assert_array_equal(got.state.x.numpy(), numpy.asarray(want.state.x))
     numpy.testing.assert_array_equal(got.state.v.numpy(), numpy.asarray(want.state.v))

@@ -7,8 +7,8 @@ port's dependencies:
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances are the repo's Pallas-vs-jnp ones: density rtol 1e-5, atol
-1e-6 and acceleration rtol 1e-4, atol 1e-5, on values scaled by their
-max; the kernels sum in another order than the plain version.
+1e-6 and acceleration and drho/dt rtol 1e-4, atol 1e-5, on values scaled
+by their max; the kernels sum in another order than the plain version.
 """
 
 import numpy
@@ -17,7 +17,7 @@ import torch
 
 from tpgsd_torch import _build
 from tpgsd_torch.entry import entry
-from tpgsd_torch.sph import dam_break, make_step_fn, ops
+from tpgsd_torch.sph import dam_break, init_density, make_step_fn, ops
 from tpgsd_torch.sph import kernels as port_kernels
 from tpgsd_torch.sph.cells import build_cells_spill, scatter_to_cells_soa
 from tpgsd_torch.sph.step import tait_pressure
@@ -41,7 +41,7 @@ def _scaled_close(got, want, live, rtol, atol):
 def _spill_tiers(dev, seed=3):
     """Both tiers of a jittered dam break at K = 24 (spill tier occupied)
     with N(0, 1) velocities, plus finished density and pressure."""
-    db = dam_break(n_side=10, capacity=K)
+    db = dam_break(n_side=10, capacity=K, device="cpu")
     rng = numpy.random.default_rng(seed)
     x = db.state.x.numpy()
     x = x + (0.05 * db.params.h / 1.3) * rng.standard_normal(x.shape)
@@ -85,7 +85,43 @@ def test_spill_kernels_match_plain(cuda, kernel):
     assert ops.launch_counts == {
         "density_self": 2, "density_cross": 2,
         "accel_self": 2, "accel_cross": 2,
+        "accel_drho_self": 0, "accel_drho_cross": 0,
     }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta_sph", [0.0, 0.1])
+@pytest.mark.parametrize("kernel", ["WendlandC2", "CubicSpline"])
+def test_accel_drho_kernel_matches_plain(cuda, kernel, delta_sph):
+    """The fused momentum + continuity kernel at K = 24 with the spill
+    tier occupied: two-tier sums and each role on its own, all four
+    columns scaled by their max."""
+    kernel = getattr(port_kernels, kernel)
+    grid, params, a, b = _spill_tiers(cuda)
+    live = (a[4].cpu().numpy(), b[4].cpu().numpy())
+    ops.reset_launch_counts()
+    kw = {"kernel": kernel, "delta_sph": delta_sph}
+    got = ops.accel_drho_spill(*a, *b, grid, params, **kw)
+    want = ops.accel_drho_spill_plain(*a, *b, grid, params, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["accel_drho_self"] == 2
+    assert ops.launch_counts["accel_drho_cross"] == 2
+    for tier in range(2):
+        assert got[tier].shape == (grid.n_cells, K, 4)
+        for col in range(4):
+            _scaled_close(got[tier][..., col], want[tier][..., col],
+                          live[tier], 1e-4, 1e-5)
+    for cen, nbr, cross, centre_live in (
+        (a, a, False, live[0]), (a, b, True, live[0]), (b, a, True, live[1])
+    ):
+        got = ops.accel_drho_pairs(*cen, *nbr, grid, params, cross=cross, **kw)
+        want = ops.accel_drho_pairs_plain(*cen, *nbr, grid, params, **kw)
+        assert not bool(got[:, ~cen[4]].any()), "dead centre slots must be 0"
+        for col in range(4):
+            if bool(want[col].any()):
+                _scaled_close(got[col], want[col], centre_live, 1e-4, 1e-5)
+    assert ops.launch_counts["accel_drho_self"] == 3
+    assert ops.launch_counts["accel_drho_cross"] == 4
 
 
 @pytest.mark.cuda
@@ -108,7 +144,7 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, tmp_path, cuda):
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-toolkit"))
-    db = dam_break(n_side=6, capacity=32)
+    db = dam_break(n_side=6, capacity=32, device=cuda)
     c, k = db.grid.n_cells, db.grid.capacity
     x = torch.zeros((3, c, k), device=cuda)
     m = torch.zeros((c, k), dtype=torch.bool, device=cuda)
@@ -121,7 +157,7 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, tmp_path, cuda):
     "capacity, spill", [(72, "auto"), (72, True), (32, False)]
 )
 def test_auto_policy_on_cuda_never_runs_the_plain_passes(cuda, capacity, spill):
-    db = dam_break(n_side=6, capacity=capacity)
+    db = dam_break(n_side=6, capacity=capacity, device=cuda)
     with pytest.raises(NotImplementedError, match="queue 2, kernels 7-9"):
         make_step_fn(db.grid, db.params, spill=spill, device=cuda)
     step = make_step_fn(
@@ -136,7 +172,8 @@ def test_kernel_step_matches_plain_step(cuda):
     assert step_k.resolved == {
         "use_kernels": True, "spill": True, "density_mode": "summation"
     }
-    db = dam_break(n_side=10, capacity="auto", capacity_headroom=1.15)
+    db = dam_break(n_side=10, capacity="auto", capacity_headroom=1.15,
+                   device=cuda)
     grid = db.grid._replace(capacity=min(max(db.grid.capacity, 24), 64))
     step_p = make_step_fn(
         grid, db.params, use_kernels=False, spill=True, device=cuda
@@ -147,9 +184,75 @@ def test_kernel_step_matches_plain_step(cuda):
     sk, (rho_k, _, _) = step_k(state)
     sp, (rho_p, _, _) = step_p(state)
     torch.cuda.synchronize()
-    assert set(ops.launch_counts.values()) == {2}
+    assert {k: v for k, v in ops.launch_counts.items() if "drho" not in k} == {
+        "density_self": 2, "density_cross": 2, "accel_self": 2, "accel_cross": 2
+    }
+    assert ops.launch_counts["accel_drho_self"] == 0
     numpy.testing.assert_allclose(
         sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6
     )
     everything = numpy.ones(rho_p.shape, bool)
     _scaled_close(rho_k, rho_p, everything, 1e-5, 1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_continuity_step_matches_plain_step(cuda):
+    """One continuity step through the fused kernel against one through
+    the plain passes, from a state three kernel steps into the run with
+    seeded N(0, 0.1) velocities on top.  The CHANGE of the carried density
+    is held too, scaled by its max (rtol 1e-4, atol 1e-5, plus 2.5e-4 for
+    the rounding of rho near 1000 to float32): a step whose drho/dt was
+    zero or lacked a term would pass a tolerance relative to rho."""
+    step_k, (state,) = entry(n_side=10, device=cuda, density_mode="continuity")
+    assert step_k.resolved == {
+        "use_kernels": True, "spill": True, "density_mode": "continuity"
+    }
+    db = dam_break(n_side=10, capacity="auto", capacity_headroom=1.15,
+                   device=cuda)
+    grid = db.grid._replace(capacity=min(max(db.grid.capacity, 24), 64))
+    step_p = make_step_fn(
+        grid, db.params, use_kernels=False, spill=True,
+        density_mode="continuity", device=cuda,
+    )
+    for _ in range(3):
+        state, _ = step_k(state)
+    rng = numpy.random.default_rng(5)
+    dv = 0.1 * rng.standard_normal(tuple(state.v.shape)).astype(numpy.float32)
+    state = state._replace(v=state.v + torch.from_numpy(dv).to(cuda))
+    ops.reset_launch_counts()
+    sk, _ = step_k(state)
+    sp, _ = step_p(state)
+    torch.cuda.synchronize()
+    assert ops.launch_counts == {
+        "density_self": 0, "density_cross": 0, "accel_self": 0,
+        "accel_cross": 0, "accel_drho_self": 2, "accel_drho_cross": 2,
+    }
+    numpy.testing.assert_allclose(
+        sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6
+    )
+    numpy.testing.assert_allclose(
+        sk.rho.cpu().numpy(), sp.rho.cpu().numpy(), rtol=1e-4, atol=1e-2
+    )
+    d_k = (sk.rho - state.rho).cpu().numpy()
+    d_p = (sp.rho - state.rho).cpu().numpy()
+    scale = float(numpy.abs(d_p).max())
+    assert scale > 100 * 2.5e-4, "the step must change the carried density"
+    numpy.testing.assert_allclose(
+        d_k / scale, d_p / scale, rtol=1e-4, atol=1e-5 + 2.5e-4 / scale
+    )
+
+
+@pytest.mark.cuda
+def test_init_density_on_the_card_matches_the_plain_pass(cuda):
+    db = dam_break(n_side=10, capacity=K, device=cuda)
+    ops.reset_launch_counts()
+    got = init_density(db.state, db.grid, db.params)
+    assert ops.launch_counts["density_self"] == 2
+    assert ops.launch_counts["density_cross"] == 2
+    want = init_density(
+        db.state._replace(x=db.state.x.cpu(), v=db.state.v.cpu()),
+        db.grid._replace(capacity=2 * K), db.params, device="cpu",
+    )
+    numpy.testing.assert_allclose(
+        got.rho.cpu().numpy(), want.rho.numpy(), rtol=1e-5
+    )

@@ -1,12 +1,16 @@
 """The torch port's SPH step against the JAX package: the spill slice with
 its async GSD dump (JAX spill step in Pallas interpret mode), the
-single-tier plain path (JAX jnp path), the auto policy and the options
-that are not ported yet.
+single-tier plain path (JAX jnp path), continuity-density mode on both
+layouts, the auto policy and the options that are not ported yet.
 
 Tolerances: positions rtol 1e-5, atol 1e-6; density rtol 1e-5, atol 1e-6
 and velocity rtol 1e-4, atol 1e-5 on values scaled by their max (as
-tests/test_spill.py holds the Pallas step to the jnp step).
+tests/test_spill.py holds the Pallas step to the jnp step); the carried
+density of continuity mode rtol 1e-4, atol 1e-2 (as
+tests/test_pallas_ops.py holds it).
 """
+
+import inspect
 
 import numpy
 import pytest
@@ -14,15 +18,21 @@ import torch
 
 import jax
 
-import tpgsd.hoomd
-from tpgsd.parallel import ShardedFrameWriter
-from tpgsd.parallel.comm import SingleComm
+import tpgsd_torch.hoomd
 from tpgsd.sph import SPHState as RefState
 from tpgsd.sph import dam_break as ref_dam_break
+from tpgsd.sph import density_and_pressure as ref_density_and_pressure
+from tpgsd.sph import init_density as ref_init_density
 from tpgsd.sph import make_step_fn as ref_make_step_fn
 from tpgsd_torch.entry import entry
 from tpgsd_torch.io_runtime import AsyncDumpRunner
-from tpgsd_torch.sph import make_step_fn
+from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
+from tpgsd_torch.sph import (
+    dam_break,
+    density_and_pressure,
+    init_density,
+    make_step_fn,
+)
 from tpgsd_torch.sph.convert import (
     grid_from_reference,
     params_from_reference,
@@ -59,7 +69,7 @@ def spill_slice(tmp_path_factory):
         ref.append((numpy.asarray(state_r.x), numpy.asarray(rho)))
 
     grid, params = grid_from_reference(db.grid), params_from_reference(db.params)
-    step = make_step_fn(grid, params, spill=True)
+    step = make_step_fn(grid, params, spill=True, device="cpu")
     state = state_from_numpy(x0, v0, "cpu")
     path = str(tmp_path_factory.mktemp("slice") / "slice.gsd")
     writer = ShardedFrameWriter(path, application="test", comm=SingleComm())
@@ -78,7 +88,7 @@ def spill_slice(tmp_path_factory):
                 step=i,
             )
         dump.flush()
-    with tpgsd.hoomd.open(path, mode="r") as traj:
+    with tpgsd_torch.hoomd.open(path, mode="r") as traj:
         frames = [
             (f.particles.position.copy(), f.particles.density.copy(),
              int(f.configuration.step))
@@ -128,7 +138,8 @@ def test_single_tier_plain_matches_jnp_path(kw):
     x0, v0 = _moving_state(db)
     step_ref = jax.jit(ref_make_step_fn(db.grid, db.params, use_pallas=False, **kw))
     step = make_step_fn(
-        grid_from_reference(db.grid), params_from_reference(db.params), **kw
+        grid_from_reference(db.grid), params_from_reference(db.params),
+        device="cpu", **kw
     )
     assert step.resolved == {
         "use_kernels": False, "spill": False, "density_mode": "summation"
@@ -174,7 +185,9 @@ def _small():
 )
 def test_auto_policy_on_cpu(use_kernels, spill, want):
     grid, params = _small()
-    step = make_step_fn(grid, params, use_kernels=use_kernels, spill=spill)
+    step = make_step_fn(
+        grid, params, use_kernels=use_kernels, spill=spill, device="cpu"
+    )
     assert (step.resolved["use_kernels"], step.resolved["spill"]) == want
 
 
@@ -211,7 +224,7 @@ def test_policy_on_cuda_raises_where_the_kernels_do_not_apply(
 def test_kernels_on_cpu_raise():
     grid, params = _small()
     with pytest.raises(ValueError, match="CUDA"):
-        make_step_fn(grid, params, use_kernels=True, spill=True)
+        make_step_fn(grid, params, use_kernels=True, spill=True, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -220,15 +233,14 @@ def test_kernels_on_cpu_raise():
         {"periodic": True},
         {"xsph": 0.5},
         {"surface_tension": 0.1},
-        {"density_mode": "continuity"},
         {"sharding": 4},
     ],
-    ids=["periodic", "xsph", "surface_tension", "continuity", "sharding"],
+    ids=["periodic", "xsph", "surface_tension", "sharding"],
 )
 def test_unported_options_raise(kw):
     grid, params = _small()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_step_fn(grid, params, **kw)
+        make_step_fn(grid, params, device="cpu", **kw)
 
 
 def test_step_rejects_a_state_on_another_device():
@@ -238,3 +250,183 @@ def test_step_rejects_a_state_on_another_device():
     with pytest.raises(ValueError, match="meta"):
         step(state_from_numpy(numpy.zeros((4, 3)), numpy.zeros((4, 3)), "cpu")
              ._replace(x=x, v=x))
+
+
+# --------------------------------------------------------------------------
+# continuity-density mode
+# --------------------------------------------------------------------------
+
+
+def _continuity_case(capacity=48):
+    """``dam_break(n_side=6)`` with seeded velocities, in both packages;
+    32 of its 384 particles overflow a 48-slot cell, so the dropped
+    particles' carried density is exercised too."""
+    db = ref_dam_break(n_side=6, capacity=capacity)
+    x0, v0 = _moving_state(db)
+    grid, params = grid_from_reference(db.grid), params_from_reference(db.params)
+    return db, x0, v0, grid, params
+
+
+@pytest.mark.parametrize("density_renorm", [False, True])
+def test_density_and_pressure_matches_reference(density_renorm):
+    db, x0, _, grid, params = _continuity_case()
+    rho_r, p_r = ref_density_and_pressure(
+        x0, db.grid, db.params, density_renorm=density_renorm
+    )
+    rho, p = density_and_pressure(
+        torch.from_numpy(x0), grid, params, density_renorm=density_renorm,
+        device="cpu",
+    )
+    numpy.testing.assert_allclose(rho.numpy(), numpy.asarray(rho_r), rtol=1e-5)
+    _scaled_close(p.numpy(), p_r, 1e-4, 1e-5)
+
+
+def test_init_density_matches_reference():
+    db, x0, v0, grid, params = _continuity_case()
+    want = ref_init_density(RefState(x=x0, v=v0), db.grid, db.params)
+    got = init_density(state_from_numpy(x0, v0, "cpu"), grid, params, device="cpu")
+    assert got.rho.shape == (x0.shape[0],) and got.rho.dtype == torch.float32
+    numpy.testing.assert_allclose(got.rho.numpy(), numpy.asarray(want.rho), rtol=1e-5)
+    assert got.x is not None and torch.equal(got.v, torch.from_numpy(v0))
+
+
+@pytest.mark.parametrize("rho", [1000.0, "per_particle"])
+def test_init_density_takes_an_explicit_seed(rho):
+    _, x0, v0, grid, params = _continuity_case()
+    if rho == "per_particle":
+        rho = numpy.linspace(900.0, 1100.0, x0.shape[0]).astype(numpy.float32)
+    got = init_density(
+        state_from_numpy(x0, v0, "cpu"), grid, params, rho=rho, device="cpu"
+    )
+    want = numpy.broadcast_to(numpy.float32(rho), (x0.shape[0],))
+    numpy.testing.assert_array_equal(got.rho.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "spill, delta_sph, n_fixed",
+    [(False, 0.1, 0), (True, 0.1, 0), (False, 0.0, 0), (True, 0.0, 0),
+     (True, 0.1, 50)],
+    ids=["single_tier", "spill", "single_tier_delta0", "spill_delta0",
+         "spill_n_fixed"],
+)
+def test_continuity_step_matches_jnp_path(spill, delta_sph, n_fixed):
+    """Two plain continuity steps (single tier at K = 48, and the two-tier
+    layout at K = 24 + 24, slot-identical to it) against the jitted JAX
+    step on the jnp path."""
+    db, x0, v0, grid, params = _continuity_case()
+    step_ref = jax.jit(ref_make_step_fn(
+        db.grid, db.params, use_pallas=False, density_mode="continuity",
+        delta_sph=delta_sph, n_fixed=n_fixed,
+    ))
+    step = make_step_fn(
+        grid._replace(capacity=24) if spill else grid, params, spill=spill,
+        density_mode="continuity", delta_sph=delta_sph, n_fixed=n_fixed,
+        device="cpu",
+    )
+    assert step.resolved == {
+        "use_kernels": False, "spill": spill, "density_mode": "continuity"
+    }
+    state_r = ref_init_density(RefState(x=x0, v=v0), db.grid, db.params)
+    state = state_from_numpy(x0, v0, "cpu", rho=numpy.asarray(state_r.rho))
+    for _ in range(2):
+        state_r, (rho_r, p_r, ov_r) = step_ref(state_r)
+        state, (rho, p, ov) = step(state)
+        assert int(ov) == int(ov_r)
+    numpy.testing.assert_allclose(
+        state.x.numpy(), numpy.asarray(state_r.x), rtol=1e-5, atol=1e-6
+    )
+    numpy.testing.assert_allclose(
+        state.rho.numpy(), numpy.asarray(state_r.rho), rtol=1e-4, atol=1e-2
+    )
+    assert torch.equal(rho, state.rho)
+    _scaled_close(p.numpy(), p_r, 1e-4, 1e-5)
+    if n_fixed:
+        numpy.testing.assert_array_equal(state.x.numpy()[:n_fixed], x0[:n_fixed])
+        assert not state.v.numpy()[:n_fixed].any()
+        # fixed particles' density still evolves
+        assert (state.rho.numpy()[:n_fixed] != numpy.asarray(
+            ref_init_density(RefState(x=x0, v=v0), db.grid, db.params).rho
+        )[:n_fixed]).any()
+
+
+def test_first_continuity_step_moves_like_the_summation_step():
+    """Seeded with the summation density, the first continuity step sees
+    the same density and pressure as the summation step, so positions
+    and velocities agree (tests/test_sph.py holds the JAX step to this)."""
+    db = ref_dam_break(n_side=10, capacity=48)
+    x0, v0 = _moving_state(db)
+    grid, params = grid_from_reference(db.grid), params_from_reference(db.params)
+    state = state_from_numpy(x0, v0, "cpu")
+    summed, (rho_s, _, ov_s) = make_step_fn(grid, params, device="cpu")(state)
+    seeded = init_density(state, grid, params, device="cpu")
+    numpy.testing.assert_allclose(seeded.rho.numpy(), rho_s.numpy(), rtol=1e-6)
+    carried, (_, _, ov_c) = make_step_fn(
+        grid, params, density_mode="continuity", device="cpu"
+    )(seeded)
+    assert int(ov_s) == int(ov_c) == 0
+    numpy.testing.assert_allclose(
+        carried.x.numpy(), summed.x.numpy(), rtol=1e-5, atol=1e-6
+    )
+    _scaled_close(carried.v.numpy(), summed.v.numpy(), 1e-4, 1e-5)
+    assert summed.rho is None and carried.rho is not None
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_continuity_without_a_seed_raises(spill):
+    grid, params = _small()
+    step = make_step_fn(
+        grid, params, density_mode="continuity", spill=spill, device="cpu"
+    )
+    state = state_from_numpy(numpy.zeros((4, 3)), numpy.zeros((4, 3)), "cpu")
+    with pytest.raises(ValueError, match="init_density"):
+        step(state)
+
+
+def test_continuity_excludes_density_renorm():
+    grid, params = _small()
+    with pytest.raises(ValueError, match="density_renorm"):
+        make_step_fn(grid, params, density_mode="continuity",
+                     density_renorm=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown density_mode"):
+        make_step_fn(grid, params, density_mode="euler", device="cpu")
+
+
+@pytest.mark.parametrize("spill", ["auto", False])
+def test_continuity_on_cuda_resolves_like_summation(spill):
+    """One policy for both density modes: on the card "auto" means the
+    kernels on the spill layout, and the single-tier dispatch raises."""
+    grid = _small()[0]
+    if spill == "auto":
+        assert resolve_policy("cuda", grid, "auto", spill) == (True, True)
+    else:
+        with pytest.raises(NotImplementedError, match="queue 2, kernels 7-9"):
+            resolve_policy("cuda", grid, "auto", spill)
+
+
+def test_entry_continuity_on_cpu_carries_the_density():
+    step, (state,) = entry(n_side=6, device="cpu", density_mode="continuity")
+    assert step.resolved == {
+        "use_kernels": False, "spill": False, "density_mode": "continuity"
+    }
+    assert state.rho is not None and state.rho.shape == (state.x.shape[0],)
+    new, (rho, p, ov) = step(state)
+    assert int(ov) == 0 and torch.equal(new.rho, rho)
+    assert bool(torch.isfinite(new.x).all()) and bool(torch.isfinite(rho).all())
+
+
+@pytest.mark.parametrize(
+    "fn", [make_step_fn, dam_break, init_density, density_and_pressure, entry],
+    ids=lambda fn: fn.__name__,
+)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the default device works")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        dam_break(n_side=4)
+    grid, params = _small()
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        make_step_fn(grid, params)

@@ -90,9 +90,10 @@ def _declare(lib):
     lib.tpgsd_accel_pairs.argtypes = [
         p, p, p, p, p,  # xc, vc, rhoc, ptc, mc
         p, p, p, p, p,  # xn, vn, rhon, ptn, mn
-        p,  # out
+        p, i,  # out, n_out (3: acc; 4: acc and drho/dt)
         i, i, i, i, i,  # nx, ny, nz, k, kind
         f, f, f, f, f, f,  # inv2h, h, sigma, h2eps, cv, supp2
+        f, f, f, f,  # adrho, ddfold, eta2, rho_floor (n_out = 4)
         p,  # stream
     ]
     lib.tpgsd_accel_pairs.restype = i

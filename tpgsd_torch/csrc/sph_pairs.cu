@@ -1,9 +1,13 @@
 // SPH pair kernels of the two-tier (spill) step, for Hopper (sm_90a).
 //
-// Replaces the four packed Pallas kernels of tpgsd/sph/pallas_ops.py that
-// the summation + spill step runs:
-//   density_pairs  <- _density_kernel_packed, _density_kernel_packed_cross
-//   accel_pairs    <- _accel_kernel_packed,   _accel_kernel_packed_cross
+// Replaces the six packed Pallas kernels of tpgsd/sph/pallas_ops.py that
+// the spill step runs in summation and in continuity density mode:
+//   density_pairs    <- _density_kernel_packed, _density_kernel_packed_cross
+//   accel_pairs      <- _accel_kernel_packed,   _accel_kernel_packed_cross
+//   accel_drho_pairs <- _accel_drho_kernel_packed,
+//                       _accel_drho_kernel_packed_cross
+// accel_pairs and accel_drho_pairs are the two instances of one template
+// (accel_pairs_kernel<kPer, kDrho>): the second adds the drho/dt sum.
 // A self pass and a cross pass differ only in which tier holds the centres
 // and which holds the neighbours, so one kernel serves both: the caller
 // passes the centre tier and the neighbour tier.
@@ -16,9 +20,11 @@
 // 27 neighbours in L1/L2) per CTA.  Each lane owns centre slot `lane`, and
 // `lane + 32` when K > 32 (K <= 64), and keeps their sums in registers.
 // Each neighbour cell's fields are staged once per warp in shared memory
-// and read back as broadcasts.  What bounds it on the H100 is the pair arithmetic (about 30
-// f32 operations per pair in accel_pairs, one sqrt, one approximate
-// divide) and the re-reads of each neighbour cell by its 27 neighbours,
+// and read back as broadcasts.  What bounds it on the H100 is the pair
+// arithmetic (about 30 f32 operations per pair in accel_pairs, one sqrt,
+// one approximate divide; accel_drho_pairs adds about 10 and, with
+// delta-SPH diffusion on, one exact divide) and the re-reads of each
+// neighbour cell by its 27 neighbours,
 // which L2 (50 MB) absorbs.  The occupancy skips of the TPU kernels carry
 // over as warp votes: a cell with no live centre writes zeros at once, a
 // neighbour cell with no live slot is skipped, and a dead neighbour slot
@@ -174,12 +180,76 @@ density_pairs_kernel(const float* __restrict__ xc,
   }
 }
 
-// a_i = m_i * sum_j m_j (pt_i + pt_j + cv min(v_ij.x_ij, 0) /
-//       ((r^2 + h2eps)(rho_i + rho_j))) * g(r) * (x_i - x_j)
+// Planes of one staged neighbour cell in the momentum kernels.
+enum Plane { kX, kY, kZ, kVx, kVy, kVz, kRho, kPt, kMask, kPlanes };
+
+// Stage one neighbour cell (slots nb .. nb + K of every plane) into this
+// warp's shared-memory planes; returns whether this lane saw a live slot.
+// Dead slots stage only their mask.
+__device__ __forceinline__ bool stage_cell(
+    float (*s)[kMaxK], const float* __restrict__ xn,
+    const float* __restrict__ vn, const float* __restrict__ rhon,
+    const float* __restrict__ ptn, const uint8_t* __restrict__ mn,
+    long long nb, long long plane, int K, int lane) {
+  bool nlive = false;
+  for (int slot = lane; slot < K; slot += 32) {
+    const long long j = nb + slot;
+    const float m = (float)mn[j];
+    s[kMask][slot] = m;
+    nlive |= m != 0.f;
+    if (m != 0.f) {
+      s[kX][slot] = xn[j];
+      s[kY][slot] = xn[plane + j];
+      s[kZ][slot] = xn[2 * plane + j];
+      s[kVx][slot] = vn[j];
+      s[kVy][slot] = vn[plane + j];
+      s[kVz][slot] = vn[2 * plane + j];
+      s[kRho][slot] = rhon[j];
+      s[kPt][slot] = ptn[j];
+    }
+  }
+  return nlive;
+}
+
+// g(r) of the momentum kernels: t^3 with t = max(1 - r/(2h), 0) for
+// WendlandC2 (its constant is folded by the caller), -dW/dr / r for the
+// cubic spline.
+__device__ __forceinline__ float grad_weight(int kind, float r, float inv2h,
+                                             float h, float sigma) {
+  if (kind == kWendlandC2) {
+    const float t = fmaxf(1.f - inv2h * r, 0.f);
+    return t * t * t;
+  }
+  return cubic_neg_dwr(r, h, sigma);
+}
+
+// Momentum pass, and with kDrho the fused momentum + continuity pass
+// (one template, so the 3-output instance pays nothing for the 4th sum):
+//   a_i = m_i * sum_j m_j (pt_i + pt_j + cv min(v_ij.x_ij, 0) /
+//         ((r^2 + h2eps)(rho_i + rho_j))) * g(r) * (x_i - x_j)
 // with pt = cfold p / rho^2 pre-scaled by the caller, g = t^3 for
 // WendlandC2 (its constant folded into cfold) and g = -dW/dr / r for the
-// cubic spline.  Output SoA [3, C, K].
-template <int kPer>  // centre slots per lane: 1 (K <= 32) or 2 (K <= 64)
+// cubic spline; and, with kDrho,
+//   drho_i/dt = adrho * m_i * sum_j m_j g(r) * (v_ij.x_ij
+//               + ddfold (rho_i - rho_n) r^2 / (rho_n (r^2 + eta2)))
+// with rho_n = max(rho_j, rho_floor), adrho = -cfold (mass times the
+// kernel-gradient constant, applied once to the reduced sum) and ddfold =
+// 2 delta h c0 (delta-SPH diffusion; 0 turns the term off and nothing of
+// it is evaluated).  v_ij.x_ij comes from explicit differences.  The
+// viscosity divide is approximate (__fdividef); the diffusion term takes
+// ONE exact IEEE divide of the product (numerator ddfold (rho_i - rho_n)
+// r^2 over rho_n (r^2 + eta2)), so drho meets its plain version at 1e-5
+// where the TPU kernel's three approximate reciprocals cost it 1.5e-3.
+// The self pair adds exactly 0 to every sum (x_ij = 0, r^2 = 0; h2eps and
+// eta2 keep the denominators positive), so i == j is not special-cased.
+// Output SoA [3, C, K] (acc_x, acc_y, acc_z), or [4, C, K] with drho/dt
+// as the fourth plane; zero on dead centre slots.
+struct DrhoFolds {
+  float adrho, ddfold, eta2, rho_floor;
+};
+
+template <int kPer,    // centre slots per lane: 1 (K <= 32) or 2 (K <= 64)
+          bool kDrho>  // also sum drho/dt (accel_drho_pairs)
 __global__ void __launch_bounds__(32 * kWarps)
 accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                    const float* __restrict__ rhoc,
@@ -190,9 +260,8 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                    const float* __restrict__ ptn,
                    const uint8_t* __restrict__ mn, float* __restrict__ out,
                    Geometry g, int kind, float inv2h, float h, float sigma,
-                   float h2eps, float cv, float supp2) {
-  // planes: x, y, z, vx, vy, vz, rho, pt, mask
-  __shared__ float s_f[kWarps][9][kMaxK];
+                   float h2eps, float cv, float supp2, DrhoFolds f) {
+  __shared__ float s_f[kWarps][kPlanes][kMaxK];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -205,7 +274,7 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
 
   float cx[kPer], cy[kPer], cz[kPer], cvx[kPer], cvy[kPer], cvz[kPer];
   float crho[kPer], cpt[kPer], cm[kPer];
-  float ax[kPer], ay[kPer], az[kPer];
+  float ax[kPer], ay[kPer], az[kPer], dr[kPer];
   bool live = false;
 #pragma unroll
   for (int s = 0; s < kPer; ++s) {
@@ -221,7 +290,7 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
     cvz[s] = ok ? vc[2 * plane + i] : 0.f;
     crho[s] = ok ? rhoc[i] : 1.f;
     cpt[s] = ok ? ptc[i] : 0.f;
-    ax[s] = ay[s] = az[s] = 0.f;
+    ax[s] = ay[s] = az[s] = dr[s] = 0.f;
     live |= cm[s] != 0.f;
   }
   if (__any_sync(kFull, live)) {
@@ -237,36 +306,21 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
           const int jz = iz + dz;
           if (jz < 0 || jz >= g.nz) continue;
           const long long nb = ((long long)(jx * g.ny + jy) * g.nz + jz) * K;
-          bool nlive = false;
-          for (int slot = lane; slot < K; slot += 32) {
-            const long long j = nb + slot;
-            const float m = (float)mn[j];
-            s_f[warp][8][slot] = m;
-            nlive |= m != 0.f;
-            if (m != 0.f) {
-              s_f[warp][0][slot] = xn[j];
-              s_f[warp][1][slot] = xn[plane + j];
-              s_f[warp][2][slot] = xn[2 * plane + j];
-              s_f[warp][3][slot] = vn[j];
-              s_f[warp][4][slot] = vn[plane + j];
-              s_f[warp][5][slot] = vn[2 * plane + j];
-              s_f[warp][6][slot] = rhon[j];
-              s_f[warp][7][slot] = ptn[j];
-            }
-          }
+          const bool nlive =
+              stage_cell(s_f[warp], xn, vn, rhon, ptn, mn, nb, plane, K, lane);
           if (!__any_sync(kFull, nlive)) continue;  // empty neighbour cell
           __syncwarp();
           for (int j = 0; j < K; ++j) {
-            const float m = s_f[warp][8][j];
+            const float m = s_f[warp][kMask][j];
             if (m == 0.f) continue;  // uniform across the warp
-            const float yx = s_f[warp][0][j];
-            const float yy = s_f[warp][1][j];
-            const float yz = s_f[warp][2][j];
-            const float yvx = s_f[warp][3][j];
-            const float yvy = s_f[warp][4][j];
-            const float yvz = s_f[warp][5][j];
-            const float yrho = s_f[warp][6][j];
-            const float ypt = s_f[warp][7][j];
+            const float yx = s_f[warp][kX][j];
+            const float yy = s_f[warp][kY][j];
+            const float yz = s_f[warp][kZ][j];
+            const float yvx = s_f[warp][kVx][j];
+            const float yvy = s_f[warp][kVy][j];
+            const float yvz = s_f[warp][kVz][j];
+            const float yrho = s_f[warp][kRho][j];
+            const float ypt = s_f[warp][kPt][j];
 #pragma unroll
             for (int s = 0; s < kPer; ++s) {
               const float ddx = cx[s] - yx;
@@ -275,13 +329,7 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
               const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
               if (r2 >= supp2) continue;
               const float r = sqrtf(r2);
-              float gr;
-              if (kind == kWendlandC2) {
-                const float t = fmaxf(1.f - inv2h * r, 0.f);
-                gr = t * t * t;
-              } else {
-                gr = cubic_neg_dwr(r, h, sigma);
-              }
+              const float gr = grad_weight(kind, r, inv2h, h, sigma);
               const float vdotx = (cvx[s] - yvx) * ddx + (cvy[s] - yvy) * ddy +
                                   (cvz[s] - yvz) * ddz;
               const float den = (r2 + h2eps) * (crho[s] + yrho);
@@ -290,6 +338,15 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
               ax[s] = fmaf(scale, ddx, ax[s]);
               ay[s] = fmaf(scale, ddy, ay[s]);
               az[s] = fmaf(scale, ddz, az[s]);
+              if constexpr (kDrho) {
+                float bracket = vdotx;
+                if (f.ddfold != 0.f) {  // uniform: delta-SPH diffusion on
+                  const float rn = fmaxf(yrho, f.rho_floor);
+                  bracket += (f.ddfold * (crho[s] - rn) * r2) /
+                             (rn * (r2 + f.eta2));
+                }
+                dr[s] = fmaf(gr * m, bracket, dr[s]);
+              }
             }
           }
           __syncwarp();  // staging of the next cell overwrites s_f
@@ -305,6 +362,9 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
       out[base + slot] = on ? ax[s] * cm[s] : 0.f;
       out[plane + base + slot] = on ? ay[s] * cm[s] : 0.f;
       out[2 * plane + base + slot] = on ? az[s] * cm[s] : 0.f;
+      if constexpr (kDrho) {
+        out[3 * plane + base + slot] = on ? f.adrho * dr[s] * cm[s] : 0.f;
+      }
     }
   }
 }
@@ -338,25 +398,32 @@ int tpgsd_density_pairs(const float* xc, const uint8_t* mc, const float* xn,
   return (int)cudaGetLastError();
 }
 
+// n_out = 3: accel_pairs, out [3, C, K]; the four drho folds are unused.
+// n_out = 4: accel_drho_pairs, out [4, C, K] with drho/dt as plane 3.
 int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
                       const float* ptc, const uint8_t* mc, const float* xn,
                       const float* vn, const float* rhon, const float* ptn,
-                      const uint8_t* mn, float* out, int nx, int ny, int nz,
-                      int k, int kind, float inv2h, float h, float sigma,
-                      float h2eps, float cv, float supp2, void* stream) {
+                      const uint8_t* mn, float* out, int n_out, int nx,
+                      int ny, int nz, int k, int kind, float inv2h, float h,
+                      float sigma, float h2eps, float cv, float supp2,
+                      float adrho, float ddfold, float eta2, float rho_floor,
+                      void* stream) {
   const int ncell = nx * ny * nz;
-  if (ncell <= 0 || k <= 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  const Geometry g{nx, ny, nz, k};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k <= 32) {
-    accel_pairs_kernel<1><<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
-        xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, kind, inv2h, h,
-        sigma, h2eps, cv, supp2);
-  } else {
-    accel_pairs_kernel<2><<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
-        xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, kind, inv2h, h,
-        sigma, h2eps, cv, supp2);
+  if (ncell <= 0 || k <= 0 || k > kMaxK || (n_out != 3 && n_out != 4)) {
+    return (int)cudaErrorInvalidValue;
   }
+  const Geometry g{nx, ny, nz, k};
+  const DrhoFolds f{adrho, ddfold, eta2, rho_floor};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* kernel = accel_pairs_kernel<1, false>;
+  if (n_out == 4) {
+    kernel = k <= 32 ? accel_pairs_kernel<1, true> : accel_pairs_kernel<2, true>;
+  } else if (k > 32) {
+    kernel = accel_pairs_kernel<2, false>;
+  }
+  kernel<<<launch_blocks(ncell), 32 * kWarps, 0, st>>>(
+      xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, kind, inv2h, h,
+      sigma, h2eps, cv, supp2, f);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,8 @@ once: a CUDA tensor into a pinned host buffer with a ``non_blocking``
 copy on the current stream, followed by a CUDA event the writer thread
 waits on; a CPU tensor by a clone.  Work queued on the stream after
 ``submit`` cannot change the frame.  The writer receives numpy arrays
-(``tpgsd.parallel`` reads any non-JAX array with ``numpy.asarray``, which
-a CUDA tensor refuses).
+(already on the host, so ``tpgsd_torch.parallel`` makes no further
+device copy).
 """
 
 import logging
@@ -84,8 +84,8 @@ class AsyncDumpRunner:
     """Stream frames to a trajectory file from a background writer thread.
 
     Args:
-        writer: a :class:`tpgsd.parallel.ShardedFrameWriter` built with an
-            explicit ``comm`` (e.g. ``SingleComm()``), or anything with
+        writer: a :class:`tpgsd_torch.parallel.ShardedFrameWriter`, or
+            anything with
             ``write_frame(chunks, step=...)`` / ``flush`` / ``close``.
         depth: max frames in flight (default 2 = classic double buffer).
         own_writer: close ``writer`` when the runner closes (default True).

@@ -1,0 +1,24 @@
+"""Sharded trajectory I/O for torch tensors (the port's copy of
+``tpgsd.parallel``).
+
+The replacement for the reference's MPI-rank parallelism (reference:
+pgsd/pgsd/pgsd.c MPI_File_* + MPI_Allgather offset protocol):
+
+* one controller process commits metadata (index/namelist/header),
+  replacing rank-0 logic (reference: pgsd/pgsd/pgsd.c:1531-1607).
+* every process pwrites only its shards at disjoint offsets into the
+  shared file - the role of ``MPI_File_write_at``.
+
+Every writer and reader takes its communicator explicitly (``comm=``).
+"""
+
+from .shard_io import (  # noqa: F401
+    ShardedFrameWriter,
+    ShardedTrajectoryReader,
+    array_shards,
+    read_sharded_chunk,
+    stripe_rows,
+    write_sharded_chunk,
+)
+from .comm import SingleComm  # noqa: F401
+from .fs import direct_write_policy, filesystem_kind  # noqa: F401

@@ -1,8 +1,8 @@
 """PyTorch/CUDA WCSPH producer (counterpart of ``tpgsd.sph``).
 
-This slice covers summation density on the single-tier plain path and on
-the two-tier spill layout, whose pair passes run as hand-written CUDA
-kernels on the card (:mod:`tpgsd_torch.sph.ops`).
+Covers summation and continuity density on the single-tier plain path
+and on the two-tier spill layout, whose pair passes run as hand-written
+CUDA kernels on the card (:mod:`tpgsd_torch.sph.ops`).
 """
 
 from .cells import (
@@ -18,7 +18,14 @@ from .cells import (
 )
 from .dam_break import DamBreak, dam_break
 from .kernels import CubicSpline, WendlandC2
-from .step import SPHParams, SPHState, make_step_fn, tait_pressure
+from .step import (
+    SPHParams,
+    SPHState,
+    density_and_pressure,
+    init_density,
+    make_step_fn,
+    tait_pressure,
+)
 
 __all__ = [
     "CellGrid",
@@ -31,7 +38,9 @@ __all__ = [
     "build_cells",
     "build_cells_spill",
     "dam_break",
+    "density_and_pressure",
     "gather_from_cells",
+    "init_density",
     "make_grid",
     "make_step_fn",
     "neighbor_table",

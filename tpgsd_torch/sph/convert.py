@@ -13,13 +13,14 @@ from .cells import CellGrid
 from .step import SPHParams, SPHState
 
 
-def state_from_numpy(x, v, device):
+def state_from_numpy(x, v, device, rho=None):
     """:class:`SPHState` on ``device`` from ``[N, 3]`` positions and
-    velocities (numpy or any array ``numpy.asarray`` reads), as float32."""
+    velocities and, for continuity mode, ``[N]`` densities (numpy or any
+    array ``numpy.asarray`` reads), as float32."""
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
-    return SPHState(x=put(x), v=put(v))
+    return SPHState(x=put(x), v=put(v), rho=None if rho is None else put(rho))
 
 
 def grid_from_reference(grid):

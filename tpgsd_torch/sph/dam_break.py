@@ -33,7 +33,7 @@ def dam_break(
     rho0=1000.0,
     c0=None,
     capacity_headroom=1.5,
-    device="cpu",
+    device="cuda",
 ):
     """Build a dam-break initial condition on ``device``.
 
@@ -48,7 +48,8 @@ def dam_break(
         c0: artificial sound speed (default 10x the peak fall speed).
         capacity_headroom: safety factor for ``capacity="auto"`` (1.15
             sizes the main tier of the two-tier spill layout).
-        device: where the state tensors live.
+        device: where the state tensors live (the card unless the caller
+            asks for ``"cpu"``).
 
     Returns:
         :class:`DamBreak` with ``n = prod(block_dims)`` particles.

@@ -2,17 +2,20 @@
 their plain versions (torch counterpart of the spill entry points of
 ``tpgsd.sph.pallas_ops``).
 
-Two CUDA kernels (``tpgsd_torch/csrc/sph_pairs.cu``) replace the four
-packed Pallas kernels of the spill step:
+Three CUDA kernels (``tpgsd_torch/csrc/sph_pairs.cu``) replace the six
+packed Pallas kernels of the spill step (summation and continuity
+density mode):
 
-====================  ==================================================
-wrapper (role)        replaces (tpgsd/sph/pallas_ops.py)
-====================  ==================================================
-density_pairs (self)  ``_density_kernel_packed`` (AA and BB passes)
-density_pairs (cross) ``_density_kernel_packed_cross`` (AB and BA)
-accel_pairs (self)    ``_accel_kernel_packed`` (AA and BB)
-accel_pairs (cross)   ``_accel_kernel_packed_cross`` (AB and BA)
-====================  ==================================================
+========================  ==============================================
+wrapper (role)            replaces (tpgsd/sph/pallas_ops.py)
+========================  ==============================================
+density_pairs (self)      ``_density_kernel_packed`` (AA and BB passes)
+density_pairs (cross)     ``_density_kernel_packed_cross`` (AB and BA)
+accel_pairs (self)        ``_accel_kernel_packed`` (AA and BB)
+accel_pairs (cross)       ``_accel_kernel_packed_cross`` (AB and BA)
+accel_drho_pairs (self)   ``_accel_drho_kernel_packed`` (AA and BB)
+accel_drho_pairs (cross)  ``_accel_drho_kernel_packed_cross`` (AB and BA)
+========================  ==============================================
 
 A self pass and a cross pass differ only in which tier holds the centres
 and which the neighbours, so each wrapper takes both tiers explicitly.
@@ -30,7 +33,12 @@ import torch
 
 from .. import _build
 from .kernels import WendlandC2, kernel_code
-from .step import _accel_blocks, _density_blocks, neighbor_index
+from .step import (
+    _accel_blocks,
+    _accel_drho_blocks,
+    _density_blocks,
+    neighbor_index,
+)
 
 #: slots per cell the CUDA kernels take (each lane owns <= 2 centres)
 MAX_CAPACITY = 64
@@ -41,6 +49,8 @@ launch_counts = {
     "density_cross": 0,
     "accel_self": 0,
     "accel_cross": 0,
+    "accel_drho_self": 0,
+    "accel_drho_cross": 0,
 }
 
 
@@ -53,6 +63,12 @@ def spill_supported(grid):
     """True when the CUDA pair kernels take ``grid.capacity`` slots per
     cell (both tiers of the spill layout have that capacity)."""
     return 1 <= grid.capacity <= MAX_CAPACITY
+
+
+def accel_drho_supported(grid):
+    """True when the fused momentum + continuity kernel takes
+    ``grid.capacity`` (the same capacities as the other pair kernels)."""
+    return spill_supported(grid)
 
 
 def _on_cpu(*tensors):
@@ -89,6 +105,18 @@ def _accel_folds(params, kernel):
     return cfold, cv
 
 
+def _drho_folds(params, kernel, delta_sph):
+    """``(adrho, ddfold, eta2, rho_floor)`` of the continuity sum, as in
+    ``tpgsd.sph.pallas_ops._accel_drho_kernel_packed``: with ``mass *
+    dw_over_r = -cfold g``, both continuity terms share ``adrho =
+    -cfold``, which scales the reduced sum once; the pair bracket is
+    ``g (vdotx + ddfold (rho_i - rho_n) / rho_n r^2 / (r^2 + eta2))``
+    with ``rho_n = max(rho_j, rho_floor)``."""
+    cfold, _ = _accel_folds(params, kernel)
+    ddfold = 2.0 * delta_sph * params.h * params.c0
+    return -cfold, ddfold, (0.1 * params.h) ** 2, 0.1 * params.rho0
+
+
 def pressure_plane(rho, p, params, kernel=WendlandC2):
     """The pre-scaled pressure plane ``cfold * p / (rho^2 + 1e-30)`` the
     acceleration kernel reads (``pallas_ops._pack_accel_fields``)."""
@@ -108,7 +136,8 @@ def _check_launch(grid, planes, fields, masks):
     c, k = grid.n_cells, grid.capacity
     if not spill_supported(grid):
         raise ValueError(
-            "the CUDA pair kernels take 1 <= capacity <= %d; got %d"
+            "the CUDA pair kernels take 1 <= capacity <= %d; capacity %d "
+            "needs the lane-padded kernels (ROADMAP queue 2, kernels 7-9)"
             % (MAX_CAPACITY, k)
         )
     dev = planes[0].device
@@ -162,28 +191,36 @@ def _launch_density(xc, mc, xn, mn, grid, params, kernel, role):
 
 
 def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
-                  params, kernel, role):
+                  params, kernel, role, delta_sph=None):
+    """One launch of the momentum kernel -> ``[3, C, K]``, or with
+    ``delta_sph`` (a number, 0 included) of its fused momentum +
+    continuity instance -> ``[4, C, K]``, counted as ``accel_<role>`` or
+    ``accel_drho_<role>``."""
     lib = _build.load()
     _check_launch(grid, (xc, vc, xn, vn), (rhoc, ptc, rhon, ptn), (mc, mn))
     code = kernel_code(kernel)
     _, cv = _accel_folds(params, kernel)
+    drho = delta_sph is not None
+    folds = _drho_folds(params, kernel, delta_sph) if drho else (0.0,) * 4
+    name = "accel_drho" if drho else "accel"
     h = params.h
     h2eps = params.eps * h * h
     supp2 = (kernel.support_scale * h) ** 2
-    out = torch.empty_like(xc)
+    n_out = 4 if drho else 3
+    out = xc.new_empty((n_out,) + tuple(mc.shape))
     nx, ny, nz = grid.dims
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tpgsd_accel_pairs(
             xc.data_ptr(), vc.data_ptr(), rhoc.data_ptr(), ptc.data_ptr(),
             mc.data_ptr(), xn.data_ptr(), vn.data_ptr(), rhon.data_ptr(),
-            ptn.data_ptr(), mn.data_ptr(), out.data_ptr(),
+            ptn.data_ptr(), mn.data_ptr(), out.data_ptr(), n_out,
             nx, ny, nz, grid.capacity, code,
             0.5 / h, h, kernel._sigma(h, params.dim), h2eps, cv, supp2,
-            stream,
+            *folds, stream,
         )
-    _raise_on(lib, rc, "accel_pairs")
-    launch_counts["accel_" + role] += 1
+    _raise_on(lib, rc, name + "_pairs")
+    launch_counts["%s_%s" % (name, role)] += 1
     return out
 
 
@@ -238,8 +275,40 @@ def accel_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
     )
 
 
+def accel_drho_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid,
+                           params, kernel=WendlandC2, delta_sph=0.1):
+    """Plain version of :func:`accel_drho_pairs`."""
+    nbr = neighbor_index(grid, xc.device)
+    return _accel_drho_blocks(
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
+        delta_sph,
+    )
+
+
+def accel_drho_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
+                     kernel=WendlandC2, delta_sph=0.1, cross=False):
+    """Fused momentum + continuity pass ``[4, C, K]`` (acc_x, acc_y,
+    acc_z, drho/dt) of the centres of one tier from the neighbours of a
+    tier; operands as :func:`accel_pairs`.  ``delta_sph`` is the
+    delta-SPH density-diffusion strength (0 = off).  Live densities must
+    be floored at ``0.1 rho0`` and dead slots carry ``rho0`` (the step
+    does both): the kernel floors the neighbour density of the diffusion
+    term there, the plain version does not."""
+    if _on_cpu(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn):
+        return accel_drho_pairs_plain(
+            xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params, kernel,
+            delta_sph,
+        )
+    return _launch_accel(
+        xc, vc, rhoc, pressure_plane(rhoc, pc, params, kernel), mc,
+        xn, vn, rhon, pressure_plane(rhon, pn, params, kernel), mn,
+        grid, params, kernel, "cross" if cross else "self", delta_sph,
+    )
+
+
 # --------------------------------------------------------------------------
-# the two-tier entry points (pallas_ops.density_spill / accel_spill)
+# the two-tier entry points (pallas_ops.density_spill / accel_spill /
+# accel_drho_spill)
 # --------------------------------------------------------------------------
 
 
@@ -290,13 +359,37 @@ def density_spill_plain(dense_x_a, mask_a, dense_x_b, mask_b, grid, params,
     )
 
 
-def _accel_tiers(x_a, v_a, rho_a, p_a, mask_a, x_b, v_b, rho_b, p_b, mask_b,
-                 grid):
+def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain):
+    """Two-tier sums ``(AA + AB, BB + BA)`` of the momentum pass, or with
+    ``delta_sph`` (a number, 0 included) of the fused momentum +
+    continuity pass, over tiers ``a`` and ``b`` (each ``(x, v, rho, p,
+    mask)``), as ``[C, K, F]`` views of the SoA sums.  CPU tensors, and
+    ``plain``, take the plain pair passes; CUDA tensors launch the kernel
+    four times, with each tier's pressure plane folded once for its two
+    passes."""
     c = grid.n_cells
-    return (
-        (x_a, v_a, rho_a[:c], p_a[:c], mask_a[:c]),
-        (x_b, v_b, rho_b[:c], p_b[:c], mask_b[:c]),
-    )
+    a, b = (t[:2] + tuple(f[:c] for f in t[2:]) for t in (a, b))
+    drho = delta_sph is not None
+    if plain or _on_cpu(*a, *b):
+        def pairs(cen, nbr, role):
+            if drho:
+                return accel_drho_pairs_plain(
+                    *cen, *nbr, grid, params, kernel, delta_sph
+                )
+            return accel_pairs_plain(*cen, *nbr, grid, params, kernel)
+    else:
+        a, b = (
+            t[:3] + (pressure_plane(t[2], t[3], params, kernel),) + t[4:]
+            for t in (a, b)
+        )
+
+        def pairs(cen, nbr, role):
+            return _launch_accel(
+                *cen, *nbr, grid, params, kernel, role, delta_sph
+            )
+
+    out_a, out_b = _two_tier(pairs, a, b)
+    return out_a.permute(1, 2, 0), out_b.permute(1, 2, 0)
 
 
 def accel_spill(
@@ -309,25 +402,11 @@ def accel_spill(
     3]`` (views of the SoA sums): ``acc_a = AA + AB``, ``acc_b = BB +
     BA``.  CPU tensors take :func:`accel_spill_plain`; CUDA tensors
     launch the acceleration kernel four times."""
-    args = (
-        dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
-        dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b, grid,
+    return _accel_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, None, plain=False,
     )
-    a, b = _accel_tiers(*args)
-    if _on_cpu(*a, *b):
-        return accel_spill_plain(*args, params, kernel)
-    # the pressure plane of each tier is folded once for its two passes
-    a, b = (
-        t[:3] + (pressure_plane(t[2], t[3], params, kernel),) + t[4:]
-        for t in (a, b)
-    )
-    acc_a, acc_b = _two_tier(
-        lambda cen, nbr, role: _launch_accel(
-            *cen, *nbr, grid, params, kernel, role
-        ),
-        a, b,
-    )
-    return acc_a.permute(1, 2, 0), acc_b.permute(1, 2, 0)
 
 
 def accel_spill_plain(
@@ -336,14 +415,39 @@ def accel_spill_plain(
     grid, params, kernel=WendlandC2,
 ):
     """Plain version of :func:`accel_spill` (any device)."""
-    a, b = _accel_tiers(
-        dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
-        dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b, grid,
+    return _accel_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, None, plain=True,
     )
-    acc_a, acc_b = _two_tier(
-        lambda cen, nbr, role: accel_pairs_plain(
-            *cen, *nbr, grid, params, kernel
-        ),
-        a, b,
+
+
+def accel_drho_spill(
+    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
+    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
+    grid, params, kernel=WendlandC2, delta_sph=0.1,
+):
+    """Two-tier fused momentum + continuity pass (continuity-density mode
+    on the spill layout), the drho counterpart of :func:`accel_spill`.
+    Returns ``(out4_a, out4_b)``, each ``[C, K, 4]`` (views of the SoA
+    sums) with columns acc_x, acc_y, acc_z, drho/dt: ``out4_a = AA + AB``,
+    ``out4_b = BB + BA``.  CPU tensors take :func:`accel_drho_spill_plain`;
+    CUDA tensors launch the fused kernel four times."""
+    return _accel_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, delta_sph, plain=False,
     )
-    return acc_a.permute(1, 2, 0), acc_b.permute(1, 2, 0)
+
+
+def accel_drho_spill_plain(
+    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
+    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
+    grid, params, kernel=WendlandC2, delta_sph=0.1,
+):
+    """Plain version of :func:`accel_drho_spill` (any device)."""
+    return _accel_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, delta_sph, plain=True,
+    )

@@ -3,7 +3,9 @@ density -> EOS -> forces -> integrate.
 
 Formulation (standard WCSPH):
 
-* density summation  rho_i = sum_j m W(r_ij, h)
+* density summation  rho_i = sum_j m W(r_ij, h), or in continuity mode
+                      drho_i/dt = sum_j m (v_i - v_j) . grad_W_ij plus
+                      delta-SPH diffusion, with rho carried in the state
 * Tait EOS           p = (rho0 c0^2 / gamma) ((rho/rho0)^gamma - 1)
 * momentum           dv_i/dt = -sum_j m (p_i/rho_i^2 + p_j/rho_j^2
                       + Pi_ij) grad_W_ij + g   (Monaghan artificial
@@ -12,7 +14,8 @@ Formulation (standard WCSPH):
 
 All pair interactions happen inside 27-cell neighborhoods of the dense
 cell layout (:mod:`tpgsd_torch.sph.cells`).  The plain pair machinery
-here (:func:`_density_blocks`, :func:`_accel_blocks`) works on the SoA
+here (:func:`_density_blocks`, :func:`_accel_blocks`,
+:func:`_accel_drho_blocks`) works on the SoA
 layout ``[F, n_cells, K]`` with a centre tier and a neighbour tier, so
 it serves both the single-tier step (the tier is its own neighbour) and
 the plain versions of the spill ops in :mod:`tpgsd_torch.sph.ops`.  On
@@ -53,10 +56,18 @@ class SPHParams(NamedTuple):
 
 
 class SPHState(NamedTuple):
-    """Dynamic state: positions and velocities, ``[N, 3]`` float32."""
+    """Dynamic state: positions and velocities, ``[N, 3]`` float32.
+
+    ``rho`` (``[N]``) is carried only in continuity-density mode
+    (``make_step_fn(density_mode="continuity")``), where density is a
+    state variable evolved by the continuity equation; the default
+    summation mode leaves it ``None``.  Seed it with
+    :func:`init_density`.
+    """
 
     x: torch.Tensor
     v: torch.Tensor
+    rho: torch.Tensor = None
 
 
 def tait_pressure(rho, params):
@@ -151,30 +162,73 @@ def _density_blocks(xc, mc, xn, mn, nbr, params, kernel):
     return out
 
 
-def _accel_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
-                  kernel):
-    """Plain per-slot acceleration (pressure + viscosity) of centre tier
-    ``c`` from neighbour tier ``n`` -> ``[3, C, K]``.  Dead slots must
-    carry a positive density (the step sets ``rho0``, ``p = 0``)."""
+def _momentum_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
+                     kernel):
+    """Cell blocks of the momentum pair pass of centre tier ``c`` from
+    neighbour tier ``n``: yields ``(c0, c1, dx, dwr, press_pi, vdotx, ym,
+    rhob, rhoy)`` with the :func:`_pair_terms` of cells ``c0:c1``, the
+    neighbours' live mask ``ym [B, 1, 27K]`` and the centre and neighbour
+    densities."""
     c, k = mc.shape
     xn_s = _with_sentinel_cell(xn, 0.0)
     vn_s = _with_sentinel_cell(vn, 0.0)
     rhon_s = _with_sentinel_cell(rhon, params.rho0)
     pn_s = _with_sentinel_cell(pn, 0.0)
     mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
-    out = xc.new_empty((3, c, k))
     for c0, c1 in _cell_blocks(c, k):
         nb = nbr[c0:c1]
-        dx, dwr, press_pi, _ = _pair_terms(
+        rhob = rhoc[c0:c1, :, None]
+        rhoy = _gather_nbr(rhon_s, nb)
+        dx, dwr, press_pi, vdotx = _pair_terms(
             xc[:, c0:c1, :, None], vc[:, c0:c1, :, None],
-            rhoc[c0:c1, :, None], pc[c0:c1, :, None],
+            rhob, pc[c0:c1, :, None],
             _gather_nbr(xn_s, nb), _gather_nbr(vn_s, nb),
-            _gather_nbr(rhon_s, nb), _gather_nbr(pn_s, nb),
+            rhoy, _gather_nbr(pn_s, nb),
             params, kernel,
         )
-        scale = -params.mass * press_pi * dwr * _gather_nbr(mn_s, nb)
+        yield c0, c1, dx, dwr, press_pi, vdotx, _gather_nbr(mn_s, nb), rhob, rhoy
+
+
+def _accel_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
+                  kernel):
+    """Plain per-slot acceleration (pressure + viscosity) of centre tier
+    ``c`` from neighbour tier ``n`` -> ``[3, C, K]``.  Dead slots must
+    carry a positive density (the step sets ``rho0``, ``p = 0``)."""
+    out = xc.new_empty((3,) + tuple(mc.shape))
+    for c0, c1, dx, dwr, press_pi, _, ym, _, _ in _momentum_blocks(
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel
+    ):
+        scale = -params.mass * press_pi * dwr * ym
         acc = torch.sum(scale * dx, dim=-1)  # [3, B, K]
         out[:, c0:c1] = acc * mc[c0:c1]
+    return out
+
+
+def _accel_drho_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
+                       params, kernel, delta_sph):
+    """Plain fused momentum + continuity pair pass of centre tier ``c``
+    from neighbour tier ``n`` -> ``[4, C, K]`` = acc3 | drho/dt.
+
+    The continuity equation ``drho_i/dt = sum_j m dwr (v_ij . x_ij)``
+    shares every pair term of the momentum equation.  ``delta_sph`` adds
+    the Molteni-Colagrossi diffusion ``delta h c0 sum_j (2 m / rho_j)
+    (rho_i - rho_j) dwr r^2 / (r^2 + eta^2)``, ``eta = 0.1 h``; 0 skips
+    the term.  The self pair contributes exactly 0 through ``r^2``.  Dead
+    slots must carry a positive density, as in :func:`_accel_blocks`."""
+    eta2 = (0.1 * params.h) ** 2
+    dcoef = 2.0 * delta_sph * params.h * params.c0 * params.mass
+    out = xc.new_empty((4,) + tuple(mc.shape))
+    for c0, c1, dx, dwr, press_pi, vdotx, ym, rhob, rhoy in _momentum_blocks(
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel
+    ):
+        scale = -params.mass * press_pi * dwr * ym  # as in _accel_blocks
+        acc = torch.sum(scale * dx, dim=-1)  # [3, B, K]
+        drho = params.mass * dwr * vdotx
+        if delta_sph > 0.0:
+            r2 = torch.sum(dx * dx, dim=0)
+            drho = drho + dcoef * (rhob - rhoy) / rhoy * dwr * r2 / (r2 + eta2)
+        out[:3, c0:c1] = acc * mc[c0:c1]
+        out[3, c0:c1] = torch.sum(drho * ym, dim=-1) * mc[c0:c1]
     return out
 
 
@@ -236,6 +290,77 @@ def resolve_policy(device_type, grid, use_kernels="auto", spill="auto"):
     return bool(use_kernels), bool(spill)
 
 
+@torch.inference_mode()
+def density_and_pressure(x, grid, params, kernel=WendlandC2,
+                         density_renorm=False, device="cuda"):
+    """Standalone summation density + Tait pressure of a configuration:
+    per-particle ``(rho, p)``, the quantities of the schema's
+    ``particles/density`` / ``particles/pressure`` chunks.
+
+    On a CUDA ``device`` the pair pass runs on the two-tier spill layout
+    through the ``density_pairs`` kernel (a capacity it does not take
+    raises, see :func:`resolve_policy`); on the CPU it is the single-tier
+    plain pass.  Particles past the layout's capacity get ``rho0``.
+    """
+    from . import ops  # ops imports this module's plain pair passes
+
+    dev = _resolve_device(device)
+    if x.device != dev:
+        raise ValueError(
+            "density_and_pressure on %s got positions on %s" % (dev, x.device)
+        )
+    use_kernels, _ = resolve_policy(dev.type, grid)
+    c, k = grid.n_cells, grid.capacity
+    if use_kernels:
+        cells, sp = build_cells_spill(x, grid, k)
+        x_a = scatter_to_cells_soa(x, cells, grid)
+        x_b = scatter_to_cells_soa(x, cells, grid, slot_base=k, capacity=k)
+        rho_a, rho_b = ops.density_spill(
+            x_a, cells.mask, x_b, sp.mask, grid, params, kernel=kernel
+        )
+        rho_dense = torch.cat([rho_a, rho_b], dim=1)  # [C, 2K]
+        mask = torch.cat([cells.mask[:c], sp.mask[:c]], dim=1)
+    else:
+        cells = build_cells(x, grid)
+        dense_x = scatter_to_cells_soa(x, cells, grid)
+        mask = cells.mask[:c]
+        rho_dense = _density_blocks(
+            dense_x, mask, dense_x, mask, neighbor_index(grid, dev), params,
+            kernel,
+        )
+    if density_renorm:
+        rho_dense = torch.where(
+            mask, _renormalize_density(rho_dense, params), rho_dense
+        )
+    sent = rho_dense.new_full((1, rho_dense.shape[1]), params.rho0)
+    rho = gather_from_cells(
+        torch.cat([rho_dense, sent]), cells, grid, capacity=rho_dense.shape[1]
+    )
+    rho = torch.clamp(rho, min=0.1 * params.rho0)  # isolated-particle floor
+    return rho, tait_pressure(rho, params)
+
+
+def init_density(state, grid, params, kernel=WendlandC2, rho=None,
+                 device="cuda"):
+    """Seed ``state.rho`` for continuity-density mode.
+
+    By default the seed is the summation density of the configuration
+    (:func:`density_and_pressure`).  Pass ``rho`` (a scalar or ``[N]``
+    values) to override - e.g. ``rho0`` everywhere for a pre-relaxed
+    state, or the ``particles/density`` chunk when resuming from a
+    trajectory.
+    """
+    if rho is None:
+        rho, _ = density_and_pressure(
+            state.x, grid, params, kernel=kernel, device=device
+        )
+    else:
+        dev = _resolve_device(device)
+        rho = torch.as_tensor(rho, dtype=torch.float32, device=dev)
+        rho = rho.expand(state.x.shape[0]).contiguous()
+    return state._replace(rho=rho)
+
+
 def make_step_fn(
     grid,
     params,
@@ -248,8 +373,9 @@ def make_step_fn(
     surface_tension=0.0,
     spill="auto",
     density_mode="summation",
+    delta_sph=0.1,
     sharding=None,
-    device="cpu",
+    device="cuda",
 ):
     """Build the SPH step for states on ``device``.
 
@@ -275,10 +401,18 @@ def make_step_fn(
             cells.  ``"auto"`` turns it on exactly when the kernels run.
             ``spill=True`` without kernels runs the plain versions of
             the spill ops (any device).
-        periodic, xsph, surface_tension, density_mode="continuity",
-            sharding: not ported yet; each raises ``NotImplementedError``
-            naming its ROADMAP item.
-        device: the device of the states the step takes.
+        density_mode: ``"summation"`` re-sums density from positions
+            every step.  ``"continuity"`` evolves ``state.rho`` (seed it
+            with :func:`init_density`) by the continuity equation, whose
+            pair terms fuse into the momentum pass: one neighbour sweep
+            per step instead of two, through the ``accel_drho_pairs``
+            kernel on the card.  It excludes ``density_renorm``.
+        delta_sph: delta-SPH density-diffusion strength (continuity mode
+            only; 0.1 is the standard setting, 0 = off).
+        periodic, xsph, surface_tension, sharding: not ported yet; each
+            raises ``NotImplementedError`` naming its ROADMAP item.
+        device: the device of the states the step takes (the card unless
+            the caller asks for ``"cpu"``).
 
     The returned function carries ``resolved = {"use_kernels", "spill",
     "density_mode"}``.
@@ -291,10 +425,15 @@ def make_step_fn(
         raise _not_ported("xsph", 5)
     if surface_tension:
         raise _not_ported("surface_tension", 5)
-    if density_mode == "continuity":
-        raise _not_ported("density_mode='continuity'", "5 (slice B)")
-    if density_mode != "summation":
+    continuity = density_mode == "continuity"
+    if density_mode not in ("summation", "continuity"):
         raise ValueError("unknown density_mode: %r" % (density_mode,))
+    if continuity and density_renorm:
+        raise ValueError(
+            "density_renorm corrects the summation-density free-surface "
+            "deficit; continuity mode has no deficit to correct - use "
+            "delta_sph for its noise control instead"
+        )
     if sharding is not None:
         raise _not_ported("the GSPMD sharding hint", 12)
 
@@ -317,12 +456,19 @@ def make_step_fn(
     gravity = torch.from_numpy(np.asarray(params.gravity, np.float32)).to(dev)
     dt = params.dt
 
-    def _finish(x, v, out, overflow):
+    def _finish(x, v, out, overflow, rho_cur=None):
         """Integrate/boundary tail: ``out`` is the per-particle gathered
-        bundle [acc3 | rho | p]."""
+        bundle [acc3 | rho | p] (summation mode) or [acc3 | drho]
+        (continuity mode, with the prior density as ``rho_cur``)."""
         acc = out[:, :3] + gravity
-        rho = out[:, 3]
-        p = out[:, 4]
+        if continuity:
+            # dropped particles gather drho = 0 from the sentinel row and
+            # keep their carried density
+            rho = torch.clamp(rho_cur + dt * out[:, 3], min=0.1 * params.rho0)
+            p = tait_pressure(rho, params)
+        else:
+            rho = out[:, 3]
+            p = out[:, 4]
 
         # symplectic Euler: kick then drift
         v_new = (v + dt * acc) * params.velocity_damping
@@ -338,13 +484,18 @@ def make_step_fn(
         v_new = torch.where(bounce, -params.wall_damping * v_new, v_new)
 
         if n_fixed > 0:
+            # boundary particles never move; in continuity mode their
+            # density still evolves (the dummy-particle treatment)
             x_new = torch.cat([x[:n_fixed], x_new[n_fixed:]])
             v_new = torch.cat([v.new_zeros((n_fixed, 3)), v_new[n_fixed:]])
-        return SPHState(x=x_new, v=v_new), (rho, p, overflow)
+        state = SPHState(x=x_new, v=v_new, rho=rho if continuity else None)
+        return state, (rho, p, overflow)
 
     def finish_rho(rho, mask):
-        """Floor, renormalize and fill dead slots (rho0, p = 0: keeps
-        p/rho^2 finite in the acceleration pass)."""
+        """Floor the summed or carried density, renormalize and fill dead
+        slots (rho0, p = 0: keeps p/rho^2 finite in the acceleration
+        pass, and gives the pair passes the same densities whether or not
+        they floor the neighbour's themselves)."""
         m = mask[:c]
         rho = torch.where(m, torch.clamp(rho, min=0.1 * params.rho0),
                           params.rho0)
@@ -353,15 +504,23 @@ def make_step_fn(
         p = torch.where(m, tait_pressure(rho, params), 0.0)
         return rho, p
 
-    def to_particles(acc, rho, p, cells):
-        """One particle-order gather of the per-slot ``[C, kc, 3]`` acc,
-        ``[C, kc]`` rho and p (kc = slots of all tiers)."""
-        bundle = torch.cat([acc, rho[..., None], p[..., None]], dim=-1)
-        # sentinel row for dropped particles: rho0, zero p/acc
+    def gather_bundle(bundle, cells):
+        """One particle-order gather of the per-slot ``[C, kc, F]`` bundle
+        (kc = slots of all tiers): acc3 | rho | p, or acc3 | drho in
+        continuity mode.  Dropped particles read the sentinel row: zero
+        acc, p and drho (they keep their carried density), rho0."""
         sent = bundle.new_zeros((1,) + tuple(bundle.shape[1:]))
-        sent[..., 3] = params.rho0
+        if not continuity:
+            sent[..., 3] = params.rho0
         return gather_from_cells(
             torch.cat([bundle, sent]), cells, grid, capacity=bundle.shape[1]
+        )
+
+    def to_particles(acc, rho, p, cells):
+        """:func:`gather_bundle` of the per-slot ``[C, kc, 3]`` acc and
+        ``[C, kc]`` rho and p."""
+        return gather_bundle(
+            torch.cat([acc, rho[..., None], p[..., None]], dim=-1), cells
         )
 
     def _check(state):
@@ -369,6 +528,38 @@ def make_step_fn(
             raise ValueError(
                 "step built for %s got a state on %s" % (dev, state.x.device)
             )
+        if continuity and state.rho is None:
+            raise ValueError(
+                "density_mode='continuity' needs state.rho - seed it with "
+                "tpgsd_torch.sph.init_density(state, grid, params)"
+            )
+
+    if spill and continuity:
+        accel_drho_spill = (
+            ops.accel_drho_spill if use_kernels else ops.accel_drho_spill_plain
+        )
+
+        @torch.inference_mode()
+        def step_continuity_spill(state):
+            _check(state)
+            x, v, rho = state.x, state.v, state.rho
+            cells, sp = build_cells_spill(x, grid, k)
+            # one fused 7-column layout gather per tier (x | v | rho)
+            xvr = torch.cat([x, v, rho[:, None]], dim=-1)
+            soa_a = scatter_to_cells_soa(xvr, cells, grid)
+            soa_b = scatter_to_cells_soa(xvr, cells, grid, slot_base=k, capacity=k)
+            rho_a, p_a = finish_rho(soa_a[6], cells.mask)
+            rho_b, p_b = finish_rho(soa_b[6], sp.mask)
+            out_a, out_b = accel_drho_spill(
+                soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
+                soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
+                grid, params, kernel=kernel, delta_sph=delta_sph,
+            )
+            out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
+            return _finish(x, v, out, cells.overflow, rho_cur=rho)
+
+        step_continuity_spill.resolved = resolved
+        return step_continuity_spill
 
     if spill:
         density_spill = ops.density_spill if use_kernels else ops.density_spill_plain
@@ -405,6 +596,29 @@ def make_step_fn(
         return step_spill
 
     nbr = neighbor_index(grid, dev)
+
+    if continuity:
+
+        @torch.inference_mode()
+        def step_continuity(state):
+            _check(state)
+            x, v, rho = state.x, state.v, state.rho
+            cells = build_cells(x, grid)
+            xvr = scatter_to_cells_soa(
+                torch.cat([x, v, rho[:, None]], dim=-1), cells, grid
+            )
+            dense_x, dense_v = xvr[:3], xvr[3:6]
+            m = cells.mask[:c]
+            rho_d, p_d = finish_rho(xvr[6], cells.mask)
+            out4 = _accel_drho_blocks(
+                dense_x, dense_v, rho_d, p_d, m, dense_x, dense_v, rho_d, p_d,
+                m, nbr, params, kernel, delta_sph,
+            )
+            out = gather_bundle(out4.permute(1, 2, 0), cells)
+            return _finish(x, v, out, cells.overflow, rho_cur=rho)
+
+        step_continuity.resolved = resolved
+        return step_continuity
 
     @torch.inference_mode()
     def step(state):
