@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Builds the CUDA pair kernels from ``tpgsd_torch/csrc`` (nvcc, first use),
-holds each against its plain PyTorch version on the 1M-particle dam break,
-drives the port's two main paths (the flagship spill step in summation
-and in continuity density mode, each with its async GSD dump through the
-port's own writer) for 20 steps, checks the written files and the kernel
-launch counts, compares one step of each kernel path with its plain
-path, times steps and kernels beside each kernel's roofline bound, and
-profiles both steps at 100k and 1M particles (torch.profiler: the device
-time per layer and the device's idle share, from one trace each).
+holds each of the nine kernel roles against its plain PyTorch version on
+the 1M-particle dam break (the two-tier roles at K = 24 and 32, the wide
+single-tier roles at K = 128, and at 100k particles K = 96, 256 and an
+arbitrary mask), drives the port's main paths for 20 steps each with the
+async GSD dump through the port's own writer (the flagship spill step and
+the single-tier K = 128 step, in summation and in continuity density
+mode), checks the written files and the kernel launch counts, runs the
+periodic workloads (a 1M still box on both layouts, a 2-D Taylor-Green
+vortex), compares one step of each kernel path with its plain path, times
+steps and kernels beside each kernel's roofline bound, and profiles the
+1M steps (torch.profiler: the device time per layer and the device's idle
+share, from one trace each).
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -39,10 +43,17 @@ from tpgsd_torch.sph import (
     CubicSpline,
     WendlandC2,
     dam_break,
+    init_density,
     make_step_fn,
     ops,
+    still_box,
+    taylor_green,
 )
-from tpgsd_torch.sph.cells import build_cells_spill, scatter_to_cells_soa
+from tpgsd_torch.sph.cells import (
+    build_cells,
+    build_cells_spill,
+    scatter_to_cells_soa,
+)
 from tpgsd_torch.sph.step import (
     _cell_blocks,
     _gather_nbr,
@@ -54,6 +65,10 @@ from tpgsd_torch.sph.step import (
 N_1M = 86  # n_side of the 1,003,104-particle dam break
 N_1M_PARTICLES = 1003104
 N_100K = 40  # n_side of the 100,000-particle dam break
+K_WIDE = 128  # the single-tier capacity past the two-tier kernels' 64
+N_BOX_1M = 100  # n_side of the 1,000,000-particle periodic still box
+N_BOX_64K = 40  # n_side of the 64,000-particle periodic still box
+N_VORTEX = 512  # n_side of the 262,144-particle 2-D Taylor-Green vortex
 DELTA_SPH = 0.1  # make_step_fn's default delta-SPH strength
 KERNELS = [
     # name, launch-count key, TPU kernel it replaces, the path that counts it
@@ -69,6 +84,12 @@ KERNELS = [
      "tpgsd/sph/pallas_ops.py:1012", "continuity"),
     ("accel_drho_pairs (cross)", "accel_drho_cross",
      "tpgsd/sph/pallas_ops.py:1190", "continuity"),
+    ("density (wide)", "density_wide", "tpgsd/sph/pallas_ops.py:190",
+     "wide summation"),
+    ("accel (wide)", "accel_wide", "tpgsd/sph/pallas_ops.py:259",
+     "wide summation"),
+    ("accel_drho (wide)", "accel_drho_wide", "tpgsd/sph/pallas_ops.py:391",
+     "wide continuity"),
 ]
 SOURCE = "tpgsd_torch/csrc/sph_pairs.cu"
 
@@ -128,18 +149,30 @@ def check_scaled(name, got, want, live, rtol, atol):
     return float(err.max())
 
 
-def spill_inputs(db, k, dev, seed=0):
-    """Both tiers of the spill layout of the dam break at capacity ``k``,
-    with a seeded jitter of 5% of the spacing and N(0, 1) velocities (so
-    the viscosity and continuity terms are on), plus finished density and
-    pressure."""
+def jittered(db, dev, seed=0):
+    """The dam break's positions with a seeded jitter of 5% of the spacing
+    and N(0, 1) velocities (so the viscosity and continuity terms are
+    on)."""
     rng = np.random.default_rng(seed)
     x0 = db.state.x.cpu().numpy()
     spacing = db.params.h / 1.3
     x = x0 + (0.05 * spacing) * rng.standard_normal(x0.shape).astype(np.float32)
     v = rng.standard_normal(x0.shape).astype(np.float32)
-    x = torch.from_numpy(x.astype(np.float32)).to(dev)
-    v = torch.from_numpy(v).to(dev)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev),
+            torch.from_numpy(v).to(dev))
+
+
+def finish_density(rho, mask, params):
+    """Density and pressure as the step finishes them: floored on live
+    slots, ``rho0`` and ``p = 0`` on dead ones."""
+    rho = torch.where(mask, torch.clamp(rho, min=0.1 * params.rho0), params.rho0)
+    return rho, torch.where(mask, tait_pressure(rho, params), 0.0)
+
+
+def spill_inputs(db, k, dev, seed=0):
+    """Both tiers of the spill layout of the jittered dam break at
+    capacity ``k``, plus finished density and pressure."""
+    x, v = jittered(db, dev, seed)
     grid = db.grid._replace(capacity=k)
     cells, sp = build_cells_spill(x, grid, k)
     xv = torch.cat([x, v], dim=-1)
@@ -148,12 +181,8 @@ def spill_inputs(db, k, dev, seed=0):
     c = grid.n_cells
     ma, mb = cells.mask[:c].contiguous(), sp.mask[:c].contiguous()
     rho = ops.density_spill_plain(a[:3], ma, b[:3], mb, grid, db.params)
-
-    def finish(r, m):
-        r = torch.where(m, torch.clamp(r, min=0.1 * db.params.rho0), db.params.rho0)
-        return r, torch.where(m, tait_pressure(r, db.params), 0.0)
-
-    (ra, pa), (rb, pb) = finish(rho[0], ma), finish(rho[1], mb)
+    ra, pa = finish_density(rho[0], ma, db.params)
+    rb, pb = finish_density(rho[1], mb, db.params)
     return {
         "grid": grid,
         "a": (a[:3], a[3:], ra, pa, ma),
@@ -193,7 +222,7 @@ def phase_kernels_vs_plain(db, dev):
     # per role: the largest raw error of any output plane, the largest
     # error scaled by its plane's max, and the raw errors by plane group
     errs = {key: {"abs": 0.0, "scaled": 0.0, "planes": {}}
-            for _, key, _, _ in KERNELS}
+            for _, key, _, _ in KERNELS if not key.endswith("_wide")}
     inputs = {}
     for k in (24, 32):
         s = spill_inputs(db, k, dev)
@@ -292,9 +321,125 @@ def phase_kernels_vs_plain(db, dev):
     return errs, inputs
 
 
-#: chunks of a frame and launches per step, by density mode; the
-#: continuity path also launches the density kernel twice per role, once,
-#: when ``entry`` seeds the carried density
+def timed(fn):
+    """``(fn(), device milliseconds)`` of one run (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def hold_planes(rec, name, got, want, live, rtol, atol):
+    """Every output plane of ``got`` against ``want`` on live slots, each
+    scaled by its own max; dead slots must be exactly 0.  Updates the
+    role's error record ``rec``."""
+    if bool(got[..., ~live].any()):
+        raise AssertionError("%s: nonzero output on a dead centre slot" % name)
+    planes = [(got, want)] if got.dim() == 2 else zip(got, want)
+    for i, (g, w) in enumerate(planes):
+        if not bool(w.any()):
+            if bool(g.any()):
+                raise AssertionError("%s: nonzero plane %d" % (name, i))
+            continue
+        e = check_scaled("%s plane %d" % (name, i), g, w, live, rtol, atol)
+        group = "rho" if got.dim() == 2 else "drho" if i == 3 else "acc"
+        rec["abs"] = max(rec["abs"], e)
+        rec["scaled"] = max(rec["scaled"], e / float(w[live].abs().max()))
+        rec["planes"][group] = max(rec["planes"].get(group, 0.0), e)
+
+
+def single_tier_inputs(db, k, dev, permute=False, seed=0):
+    """The single-tier layout ``(grid, x, v, mask)`` of the jittered dam
+    break at capacity ``k``; ``permute`` shuffles the slots of every cell,
+    which turns the prefix masks into arbitrary ones."""
+    x, v = jittered(db, dev, seed)
+    grid = db.grid._replace(capacity=k)
+    cells = build_cells(x, grid)
+    if int(cells.overflow):
+        raise AssertionError("overflow at K=%d" % k)
+    soa = scatter_to_cells_soa(torch.cat([x, v], dim=-1), cells, grid)
+    m = cells.mask[: grid.n_cells].contiguous()
+    if permute:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        perm = torch.rand(m.shape, device=dev, generator=gen).argsort(dim=1)
+        m = torch.gather(m, 1, perm)
+        soa = torch.gather(soa, 2, perm.expand(6, -1, -1)).contiguous()
+        if bool(m[:, 0].all()):
+            raise AssertionError("the permuted masks are still prefixes")
+    return grid, soa[:3], soa[3:], m
+
+
+def phase_wide_kernels_vs_plain(dev, card):
+    """Phase 3 (wide): the three wide roles against their plain versions
+    on the 1M dam break at K = 128 (both smoothing kernels, delta-SPH on
+    and off; each plain pass runs once and is timed), then at 100k
+    particles K = 96 and 256 and, at K = 128, an arbitrary mask.  Returns
+    the per-role errors, the 1M tier and the plain passes' times."""
+    errs = {key: {"abs": 0.0, "scaled": 0.0, "planes": {}}
+            for key in ("density_wide", "accel_wide", "accel_drho_wide")}
+    plain_ms = {}
+    tier1m = None
+    cases = [(N_1M, K_WIDE, False), (N_100K, 96, False), (N_100K, 256, False),
+             (N_100K, K_WIDE, True)]
+    for n_side, k, permute in cases:
+        db = dam_break(n_side=n_side, capacity=k, device=dev)
+        params = db.params
+        grid, x, v, m = single_tier_inputs(db, k, dev, permute)
+        full = n_side == N_1M
+        tag = "phase 3 (wide): N=%d K=%d%s" % (
+            db.n, k, ", arbitrary mask" if permute else "")
+        # K = 256 costs 64 times the plain pairs of K = 32: one kernel there
+        kernels = (WendlandC2,) if k == 256 else (WendlandC2, CubicSpline)
+        for kern in kernels:
+            name = "%s %s" % (tag, kern.__name__)
+            got = ops.density(x, m, grid, params, kernel=kern)
+            want, ms = timed(
+                lambda: ops.density_plain(x, m, grid, params, kernel=kern))
+            hold_planes(errs["density_wide"], name + " density", got, want, m,
+                        1e-5, 1e-6)
+            tier = (x, v, *finish_density(want, m, params), m)
+            if full and kern is WendlandC2:
+                plain_ms["density_wide"], tier1m = ms, (grid, params, tier)
+            if not (full and kern is CubicSpline):  # held by accel_drho there
+                got = ops.accel(*tier, grid, params, kernel=kern)
+                want, ms = timed(
+                    lambda: ops.accel_plain(*tier, grid, params, kernel=kern))
+                hold_planes(errs["accel_wide"], name + " accel", got, want, m,
+                            1e-4, 1e-5)
+                if full:
+                    plain_ms["accel_wide"] = ms
+            for delta in (DELTA_SPH, 0.0):
+                if delta == 0.0 and not (full and kern is WendlandC2):
+                    continue
+                kw = {"kernel": kern, "delta_sph": delta}
+                got = ops.accel_drho(*tier, grid, params, **kw)
+                want, ms = timed(
+                    lambda: ops.accel_drho_plain(*tier, grid, params, **kw))
+                hold_planes(errs["accel_drho_wide"],
+                            "%s accel_drho delta=%g" % (name, delta), got,
+                            want, m, 1e-4, 1e-5)
+                if full and kern is WendlandC2 and delta:
+                    plain_ms["accel_drho_wide"] = ms
+        print("%s: %d live slots of %d, %.1f%% of the cells past 32 slots; "
+              "held" % (tag, int(m.sum()), m.numel(),
+                        100.0 * float(m[:, 32:].any(dim=1).float().mean())))
+    for key, rec in errs.items():
+        print("phase 3 (wide): %s max abs err %s, largest scaled by its "
+              "plane's max %.3e; plain pass %.1f ms [%s]"
+              % (key, ", ".join("%s %.6g" % kv for kv in
+                                sorted(rec["planes"].items())),
+                 rec["scaled"], plain_ms[key], card))
+    return errs, tier1m, plain_ms
+
+
+#: the main paths: chunks of a frame and launches per step, by layout
+#: ("" is the flagship two-tier spill layout, "wide " the single tier at
+#: K = 128) and density mode; a continuity path also launches the density
+#: kernel once (per role and tier pass) when its carried density is seeded
 PATHS = {
     "summation": {
         "chunks": ("position", "velocity", "density", "pressure", "slength"),
@@ -307,22 +452,87 @@ PATHS = {
         "per_step": {"accel_drho_self": 2, "accel_drho_cross": 2},
         "seed": {"density_self": 2, "density_cross": 2},
     },
+    "wide summation": {
+        "chunks": ("position", "velocity", "density", "pressure", "slength"),
+        "per_step": {"density_wide": 1, "accel_wide": 1},
+        "seed": {},
+    },
+    "wide continuity": {
+        "chunks": ("position", "velocity", "density"),
+        "per_step": {"accel_drho_wide": 1},
+        "seed": {"density_wide": 1},
+    },
 }
 
 
-def phase_main_path(dev, card, params, density_mode):
-    """Phase 4: the flagship step at 1M particles in ``density_mode``
-    through the entry point, 20 steps, a frame every 5th step through the
+PATHS_MODES = ("summation", "continuity")
+
+
+def configuration(layout, n_side, dev, density_mode, plain=False):
+    """``(step, state)`` of one of the driven configurations through the
+    entry points a user calls, with the "auto" policies (``plain``: the
+    plain pair passes instead: on the single tier, which for the periodic
+    two-tier layout is the slot-identical tier of twice the capacity; for
+    the flagship the plain spill ops on its own grid):
+
+    * ``"spill"``: the flagship, dam break on the two-tier layout;
+    * ``"wide"``: the dam break on the single tier at K = 128;
+    * ``"periodic spill"`` / ``"periodic wide"``: the periodic still box,
+      capacity from ``"auto"`` clamped to 24-64 as ``entry`` does, or 128.
+    """
+    if layout == "spill" and not plain:
+        step, (state,) = entry(n_side=n_side, device=dev,
+                               density_mode=density_mode)
+        return step, state
+    periodic = layout.startswith("periodic")
+    wide = layout.endswith("wide")
+    if periodic:
+        sc = still_box(n_side=n_side, capacity=K_WIDE if wide else "auto",
+                       device=dev)
+    elif wide:
+        sc = dam_break(n_side=n_side, capacity=K_WIDE, device=dev)
+    else:
+        sc = dam_break(n_side=n_side, capacity="auto", capacity_headroom=1.15,
+                       device=dev)
+    grid = sc.grid
+    if not wide:
+        grid = grid._replace(capacity=min(max(grid.capacity, 24), 64))
+    kw = {"use_kernels": "auto", "spill": "auto"}
+    if plain:
+        # the flagship's plain path is the plain spill ops on its own grid
+        kw = {"use_kernels": False, "spill": layout == "spill"}
+        if layout == "periodic spill":
+            grid = grid._replace(capacity=2 * grid.capacity)
+    step = make_step_fn(grid, sc.params, periodic=periodic,
+                        density_mode=density_mode, device=dev, **kw)
+    want = {"use_kernels": not plain,
+            "spill": layout == "spill" or not (plain or wide),
+            "density_mode": density_mode}
+    if step.resolved != want:
+        raise AssertionError("%s resolved to %r" % (layout, step.resolved))
+    state = sc.state
+    if density_mode == "continuity":
+        state = init_density(state, grid, sc.params, periodic=periodic,
+                             device=dev)
+    return step, state
+
+
+def phase_main_path(dev, card, params, path):
+    """Phase 4: one main path (a key of ``PATHS``) at the 1M dam break
+    through the entry points, 20 steps, a frame every 5th step through the
     async dump into the port's writer; returns the launch counts of the
     whole path (seed included)."""
-    path_of = PATHS[density_mode]
-    tag = "phase 4 (%s)" % density_mode
+    path_of = PATHS[path]
+    tag = "phase 4 (%s)" % path
+    density_mode = path.split()[-1]
+    layout = "wide" if path.startswith("wide") else "spill"
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    step, (state,) = entry(n_side=N_1M, device=dev, density_mode=density_mode)
-    want = {"use_kernels": True, "spill": True, "density_mode": density_mode}
+    step, state = configuration(layout, N_1M, dev, density_mode)
+    want = {"use_kernels": True, "spill": layout == "spill",
+            "density_mode": density_mode}
     if step.resolved != want:
-        raise AssertionError("flagship resolved to %r" % (step.resolved,))
+        raise AssertionError("%s resolved to %r" % (path, step.resolved))
     n = state.x.shape[0]
     if n != N_1M_PARTICLES:
         raise AssertionError("1M dam break has %d particles" % n)
@@ -409,21 +619,20 @@ def phase_main_path(dev, card, params, density_mode):
 RHO_ROUNDING = 2.5e-4
 
 
-def phase_kernel_vs_plain_step(dev, density_mode):
-    """Phase 5: one step of the kernel path against the plain path at
-    100k particles, from a state 10 kernel steps into the run with seeded
+def phase_kernel_vs_plain_step(dev, density_mode, layout="spill",
+                               n_side=N_100K):
+    """Phase 5: one step of the kernel path of a ``configuration``
+    against its plain path at 100k particles (64k in the periodic box),
+    from a state 10 kernel steps into the run with seeded
     N(0, 0.1) velocities on top (so v_ij.x_ij, the viscosity and the
     continuity sum are far from zero).  In continuity mode the CHANGE of
     the carried density is compared too, scaled by its max (rtol 1e-4,
     atol 1e-5, plus the rounding of rho itself): a step whose drho/dt was
-    zero, or lacked a term, would pass a tolerance relative to rho."""
-    step_k, (state,) = entry(n_side=N_100K, device=dev,
-                             density_mode=density_mode)
-    db = dam_break(n_side=N_100K, capacity="auto", capacity_headroom=1.15,
-                   device=dev)
-    grid = db.grid._replace(capacity=min(max(db.grid.capacity, 24), 64))
-    step_p = make_step_fn(grid, db.params, use_kernels=False, spill=True,
-                          density_mode=density_mode, device=dev)
+    zero, or lacked a term, would pass a tolerance relative to rho.  The
+    periodic kernel steps take the ghost halo, their plain step the
+    wrapped neighbour table and the minimum image."""
+    step_k, state = configuration(layout, n_side, dev, density_mode)
+    step_p, _ = configuration(layout, n_side, dev, density_mode, plain=True)
     for _ in range(10):
         state, _aux = step_k(state)
     rng = np.random.default_rng(5)
@@ -457,11 +666,93 @@ def phase_kernel_vs_plain_step(dev, density_mode):
         everything = torch.ones_like(rho_p, dtype=torch.bool)
         e = check_scaled("100k step rho", rho_k, rho_p, everything, 1e-5, 1e-6)
         rho_tol = "rtol 1e-5 atol 1e-6 scaled"
-    print("phase 5 (%s): kernel path vs plain path at N=%d: positions within "
-          "rtol 1e-5 atol 1e-6 (max abs %.3g), rho within %s (max abs err "
-          "%.3g)" % (density_mode, state.x.shape[0],
+    print("phase 5 (%s %s): kernel path vs plain path at N=%d: positions "
+          "within rtol 1e-5 atol 1e-6 (max abs %.3g), rho within %s (max abs "
+          "err %.3g)" % (layout, density_mode, state.x.shape[0],
                      float((sk.x - sp.x).abs().max()), rho_tol, e))
     return step_k, step_p, state
+
+
+def run_counted(step, state, n_steps):
+    """``n_steps`` steps with the launch counts set to 0 just before;
+    returns the final state, the last aux and the counts, and raises on
+    overflow."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    overflow = []
+    for _ in range(n_steps):
+        state, aux = step(state)
+        overflow.append(aux[2])
+    torch.cuda.synchronize()
+    if int(torch.stack(overflow).sum()):
+        raise AssertionError("overflow in a counted run")
+    return state, aux, {k: v for k, v in ops.launch_counts.items() if v}
+
+
+def phase_periodic(dev, card):
+    """The periodic workloads at full width: the 1M still box for 10
+    steps on the two-tier layout (summation and continuity) and on the
+    wide layout (summation), where a periodic lattice must show no wall
+    deficit (mean density within 2% of rho0, every particle within 1% of
+    the mean); and the 2-D Taylor-Green vortex for 30 steps, whose kinetic
+    energy must fall and whose z must not move."""
+    n_steps = 10
+    for layout, mode in (("periodic spill", "summation"),
+                         ("periodic spill", "continuity"),
+                         ("periodic wide", "summation")):
+        step, state = configuration(layout, N_BOX_1M, dev, mode)
+        n = state.x.shape[0]
+        state, (rho, _p, _ov), counts = run_counted(step, state, n_steps)
+        role = ("wide",) if layout.endswith("wide") else ("self", "cross")
+        per_step = 2 if len(role) == 2 else 1
+        families = ("accel_drho",) if mode == "continuity" else ("density", "accel")
+        want = {"%s_%s" % (f, r): per_step * n_steps
+                for f in families for r in role}
+        if counts != want:
+            raise AssertionError("%s %s launched %r, expected %r"
+                                 % (layout, mode, counts, want))
+        if not bool(torch.isfinite(state.x).all()):
+            raise AssertionError("%s %s: non-finite positions" % (layout, mode))
+        rho0 = 1000.0
+        mean = float(rho.mean())
+        spread = float((rho / mean - 1.0).abs().max())
+        if abs(mean / rho0 - 1.0) > 0.02 or spread > 0.01:
+            raise AssertionError(
+                "%s %s: mean density %.4f, largest deviation from it %.4f: a "
+                "wall deficit" % (layout, mode, mean, spread))
+        print("phase 4 (%s %s): N=%d, %d steps, launches %s, mean density "
+              "%.4f (rho0 %.0f), every particle within %.2e of the mean "
+              "(limit 1e-2)" % (layout, mode, n, n_steps, json.dumps(counts),
+                                mean, rho0, spread))
+
+    sc = taylor_green(n_side=N_VORTEX, device=dev)
+    step = make_step_fn(sc.grid, sc.params, periodic=True, device=dev)
+    want = {"use_kernels": True, "spill": True, "density_mode": "summation"}
+    if step.resolved != want:
+        raise AssertionError("taylor_green resolved to %r" % (step.resolved,))
+    state = sc.state
+
+    def kinetic(st):
+        return 0.5 * sc.params.mass * float((st.v.double() ** 2).sum())
+
+    energy = [kinetic(state)]
+    total = {}
+    for _ in range(2):
+        state, _aux, counts = run_counted(step, state, 15)
+        energy.append(kinetic(state))
+        for key, value in counts.items():
+            total[key] = total.get(key, 0) + value
+    if not (energy[0] > energy[1] > energy[2] > 0.0):
+        raise AssertionError("taylor_green kinetic energy %r" % (energy,))
+    if not torch.equal(state.x[:, 2], sc.state.x[:, 2]):
+        raise AssertionError("taylor_green: z moved")
+    if total != {"density_self": 60, "density_cross": 60,
+                 "accel_self": 60, "accel_cross": 60}:
+        raise AssertionError("taylor_green launched %r" % (total,))
+    print("phase 4 (taylor_green): N=%d (2-D, grid %s, K=%d), 30 periodic "
+          "steps, kinetic energy %.6g -> %.6g -> %.6g, z unchanged, launches "
+          "%s" % (sc.n, "x".join(map(str, sc.grid.dims)), sc.grid.capacity,
+                  energy[0], energy[1], energy[2], json.dumps(total)))
 
 
 def count_pairs(cen, nbr_tier, grid, params, kernel):
@@ -548,18 +839,45 @@ def pair_passes(a, b, grid, params):
     }
 
 
-def phase_times(dev, card, params, steps100, inputs24, inputs32):
+def step_ms(step, state, reps, warmup):
+    """Mean device milliseconds of one step over ``reps`` steps."""
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0])
+
+    return cuda_ms(run, reps, warmup)
+
+
+def ghost_halo_ms(grid, dev, tiers, continuity):
+    """Device milliseconds a periodic step spends on its ghost halo: the
+    gathers of every plane into the ghost tiers and of the outputs back to
+    the interior rows, replayed on tensors of the step's shapes (``tiers``
+    is 2 on the spill layout, 1 on the single tier)."""
+    wrap = tuple(bool(d >= 3) for d in grid.dims)
+    g, src, shift, interior = ops._ghost_index(grid, wrap, dev)
+    c, k = grid.n_cells, grid.capacity
+    x = torch.zeros((3, c, k), device=dev)
+    f = torch.zeros((c, k), device=dev)
+    m = torch.zeros((c, k), dtype=torch.bool, device=dev)
+    out = torch.zeros((4, g.n_cells, k), device=dev)
+
+    def run():
+        for _ in range(tiers):
+            if not continuity:  # the density pass
+                ops._ghost_tier((x, m), src, shift)
+                out[0].index_select(-2, interior)
+            ops._ghost_tier((x, x, f, f, m), src, shift)
+            out[: 4 if continuity else 3].index_select(-2, interior)
+
+    return cuda_ms(run, 10, 2)
+
+
+def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
     """Phase 6: step and kernel times on the card (CUDA events), and each
     kernel role's roofline bound on the same inputs (the flagship's K =
-    32 and, with the spill tier occupied, K = 24)."""
-    def step_ms(step, state, reps, warmup):
-        box = [state]
-
-        def run():
-            box[0], _ = step(box[0])
-
-        return cuda_ms(run, reps, warmup)
-
+    32 and, with the spill tier occupied, K = 24; the wide roles on the
+    single tier at K = 128, ``wide`` = its tier and plain passes' times)."""
     for mode, (step_k100, step_p100, state100) in steps100.items():
         n100 = state100.x.shape[0]
         k100 = step_ms(step_k100, state100, 20, 3)
@@ -569,7 +887,7 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32):
               "particle-steps/s) [%s]" % (mode, n100, k100, n100 / k100 * 1e3,
                                           p100, n100 / p100 * 1e3, card))
 
-        step_k1m, (state1m,) = entry(n_side=N_1M, device=dev, density_mode=mode)
+        step_k1m, state1m = configuration("spill", N_1M, dev, mode)
         n1m = state1m.x.shape[0]
         k1m = step_ms(step_k1m, state1m, 20, 3)
         msg = "phase 6 (%s): N=%d kernel path %.4f ms/step (%.4g " \
@@ -624,13 +942,102 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32):
                      names[id(cen)], names[id(nbr_tier)], int(cen[4].sum()),
                      int(nbr_tier[4].sum()), kms, bound_ms, by, n_bytes, flop,
                      100.0 * bound_ms / kms, card))
+
+    # the wide roles at the wide main paths' shapes (the single tier at
+    # K = 128): the last three rows of the ``kernels`` line
+    grid_w, params_w, tier = wide["tier"]
+    folded = (tier[:3] + (ops.pressure_plane(tier[2], tier[3], params_w),)
+              + tier[4:])
+    launches = {
+        "density": (1, lambda: ops._launch_density(
+            tier[0], tier[4], tier[0], tier[4], grid_w, params_w, WendlandC2,
+            "self")),
+        "accel": (3, lambda: ops._launch_accel(
+            *folded, *folded, grid_w, params_w, WendlandC2, "self")),
+        "accel_drho": (4, lambda: ops._launch_accel(
+            *folded, *folded, grid_w, params_w, WendlandC2, "self",
+            DELTA_SPH)),
+    }
+    for family, (n_out, kern) in launches.items():
+        key = family + "_wide"
+        kms = cuda_ms(kern, 20, 3)
+        bound_ms, by, n_bytes, flop = roofline(
+            family, tier, tier, grid_w, params_w, WendlandC2, n_out)
+        times[key] = {"ms": kms, "plain_ms": wide["plain_ms"][key],
+                      "bound_ms": bound_ms, "bound_by": by}
+        print("phase 6: %s at N=%d, K=%d (single tier): kernel %.4f ms, plain "
+              "%.4f ms, bound %.4f ms by %s (%.4g bytes, %.4g flop; kernel at "
+              "%.1f%% of the bound's rate; %.2f times the K=32 self role) [%s]"
+              % (key, N_1M_PARTICLES, grid_w.capacity, kms,
+                 wide["plain_ms"][key], bound_ms, by, n_bytes, flop,
+                 100.0 * bound_ms / kms, kms / times[family + "_self"]["ms"],
+                 card))
+
+    # would the wide design serve K <= 64?  The same K = 32 self-role
+    # inputs through the wide kernels (the wrappers send a capacity past
+    # ops.MAX_CAPACITY there), held to the two-tier kernels' results
+    grid, a = inputs32["grid"], inputs32["a"]
+    passes = pair_passes(a, a, grid, params)
+    narrow = {f: kern(a, a, "self") for f, (_, kern, _) in passes.items()}
+    keep, ops.MAX_CAPACITY = ops.MAX_CAPACITY, 0
+    try:
+        for family, (_, kern, _) in passes.items():
+            got = kern(a, a, "self")
+            rtol, atol = (1e-5, 1e-6) if family == "density" else (1e-4, 1e-5)
+            hold_planes({"abs": 0.0, "scaled": 0.0, "planes": {}},
+                        "wide %s at K=32" % family, got, narrow[family], a[4],
+                        rtol, atol)
+            kms = cuda_ms(lambda: kern(a, a, "self"), 20, 3)
+            print("phase 6: the wide %s kernel on the K=%d self-role inputs: "
+                  "%.4f ms against %.4f ms of %s_self [%s]"
+                  % (family, grid.capacity, kms,
+                     times[family + "_self"]["ms"], family, card))
+    finally:
+        ops.MAX_CAPACITY = keep
+
+    # the wide and the periodic steps
+    for mode in PATHS_MODES:
+        for n_side in (N_100K, N_1M):
+            step, state = configuration("wide", n_side, dev, mode)
+            n = state.x.shape[0]
+            kms = step_ms(step, state, 20, 3)
+            msg = ("phase 6 (wide %s): N=%d, K=%d kernel path %.4f ms/step "
+                   "(%.4g particle-steps/s)" % (mode, n, K_WIDE, kms,
+                                                n / kms * 1e3))
+            if n_side == N_100K:
+                step_p, _ = configuration("wide", n_side, dev, mode, plain=True)
+                _, pms = timed(lambda: step_p(state))
+                msg += ", plain path %.1f ms/step (one step)" % pms
+            print(msg + " [%s]" % card)
+            del step, state
+    for layout, mode in (("periodic spill", "summation"),
+                         ("periodic spill", "continuity"),
+                         ("periodic wide", "summation")):
+        step, state = configuration(layout, N_BOX_1M, dev, mode)
+        n = state.x.shape[0]
+        kms = step_ms(step, state, 10, 3)
+        sc_grid = still_box(
+            n_side=N_BOX_1M, capacity=K_WIDE if layout.endswith("wide")
+            else "auto", device="cpu").grid
+        if not layout.endswith("wide"):
+            sc_grid = sc_grid._replace(
+                capacity=min(max(sc_grid.capacity, 24), 64))
+        tiers = 1 if layout.endswith("wide") else 2
+        gms = ghost_halo_ms(sc_grid, dev, tiers, mode == "continuity")
+        print("phase 6 (%s %s): N=%d, grid %s, K=%d: %.4f ms/step (%.4g "
+              "particle-steps/s), of which the ghost halo's gathers %.4f ms "
+              "(%.1f%%) [%s]"
+              % (layout, mode, n, "x".join(map(str, sc_grid.dims)),
+                 sc_grid.capacity, kms, n / kms * 1e3, gms, 100.0 * gms / kms,
+                 card))
+        del step, state
     return times
 
 
 #: layer groups of the profile, by a fragment of the device kernel's name
 #: (first match wins; the rest is elementwise: EOS, integrate, masks)
 PROFILE_GROUPS = [
-    ("pair kernels", ("_pairs_kernel",)),
+    ("pair kernels", ("_pairs_kernel", "_wide_kernel")),
     ("cummax scan (cell build)", ("scan_innermost_dim_with_indices",)),
     ("radix sort (cell build)", ("RadixSort",)),
     ("cat copies", ("CatArray",)),
@@ -654,8 +1061,10 @@ def _union_us(spans):
     return total
 
 
-def phase_profile(dev, card, n_side, density_mode, steps=10, warmup=5):
-    """Phase 7: one torch.profiler trace of ``steps`` flagship steps.
+def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
+                  warmup=5):
+    """Phase 7: one torch.profiler trace of ``steps`` steps of a
+    ``configuration``.
     The device busy time (union of the device activity) and the wall
     time both come from that trace: wall is the span of a host region
     that ends with a device sync.  The profiler slows the host side, so
@@ -663,7 +1072,7 @@ def phase_profile(dev, card, n_side, density_mode, steps=10, warmup=5):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    step, (state,) = entry(n_side=n_side, device=dev, density_mode=density_mode)
+    step, state = configuration(layout, n_side, dev, density_mode)
     n = state.x.shape[0]
     for _ in range(warmup):
         state, _aux = step(state)
@@ -690,9 +1099,9 @@ def phase_profile(dev, card, n_side, density_mode, steps=10, warmup=5):
     busy = _union_us([(s, e) for s, e in inside if e > s])
     wall = t1 - t0
     outside = sum(1 for s, e in inside if e <= s)
-    print("phase 7 (%s): N=%d profiled %d steps: wall %.4f ms/step, device "
+    print("phase 7 (%s %s): N=%d profiled %d steps: wall %.4f ms/step, device "
           "busy %.4f ms/step, idle share %.4f (%d device events outside the "
-          "region) [%s]" % (density_mode, n, steps, wall / steps / 1e3,
+          "region) [%s]" % (layout, density_mode, n, steps, wall / steps / 1e3,
                             busy / steps / 1e3, 1.0 - busy / wall, outside,
                             card))
     groups = {}
@@ -724,6 +1133,7 @@ def main():
             "chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
             "is false"
         )
+    started = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -749,15 +1159,26 @@ def main():
     params = db.params
     errs, inputs = phase_kernels_vs_plain(db, dev)
     del db
-    counts = {mode: phase_main_path(dev, card, params, mode) for mode in PATHS}
-    steps100 = {mode: phase_kernel_vs_plain_step(dev, mode) for mode in PATHS}
-    times = phase_times(dev, card, params, steps100, inputs[24], inputs[32])
-    del steps100, inputs
-    for mode in PATHS:
-        for n_side in (N_100K, N_1M):
-            phase_profile(dev, card, n_side, mode)
+    errs_wide, tier_wide, plain_ms_wide = phase_wide_kernels_vs_plain(dev, card)
+    errs.update(errs_wide)
+    counts = {path: phase_main_path(dev, card, params, path) for path in PATHS}
+    phase_periodic(dev, card)
+    steps100 = {mode: phase_kernel_vs_plain_step(dev, mode)
+                for mode in PATHS_MODES}
+    for mode in PATHS_MODES:
+        phase_kernel_vs_plain_step(dev, mode, "wide")
+        phase_kernel_vs_plain_step(dev, mode, "periodic spill", N_BOX_64K)
+    phase_kernel_vs_plain_step(dev, "summation", "periodic wide", N_BOX_64K)
+    times = phase_times(dev, card, params, steps100, inputs[24], inputs[32],
+                        {"tier": tier_wide, "plain_ms": plain_ms_wide})
+    del steps100, inputs, tier_wide
+    for layout, mode in (("spill", "summation"), ("spill", "continuity"),
+                         ("wide", "summation"), ("wide", "continuity")):
+        phase_profile(dev, card, layout, N_1M, mode)
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
+    print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"
+          % (time.perf_counter() - started))
 
     kernels = [
         {

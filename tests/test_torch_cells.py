@@ -129,13 +129,34 @@ def test_gather_from_cells_matches_reference(case):
     numpy.testing.assert_array_equal(got.numpy(), numpy.asarray(want))
 
 
-def test_neighbor_table_matches_reference(case):
+@pytest.mark.parametrize(
+    "periodic", [False, True, (True, False, True), (False, False, True)],
+    ids=["closed", "periodic", "wrap_xz", "wrap_z"],
+)
+def test_neighbor_table_matches_reference(case, periodic):
+    """Equal tables, closed and wrapped (all axes with at least 3 cells,
+    or the axes a 3-tuple selects)."""
     _, grid = case
+    got = port.neighbor_table(grid_from_reference(grid), periodic=periodic)
     numpy.testing.assert_array_equal(
-        port.neighbor_table(grid_from_reference(grid)), ref.neighbor_table(grid)
+        got, ref.neighbor_table(grid, periodic=periodic)
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.neighbor_table(grid_from_reference(grid), periodic=True)
+    assert got.dtype == numpy.int32
+    # a wrapped table has no sentinel on its wrapped axes
+    assert (got == grid.n_cells).any() == (periodic is not True)
+
+
+def test_neighbor_table_leaves_axes_under_three_cells_closed():
+    grid = ref.make_grid((0, 0, 0), (1.0, 1.0, 0.2), 0.1, 8)
+    assert grid.dims[2] == 2
+    got = port.neighbor_table(grid_from_reference(grid), periodic=True)
+    numpy.testing.assert_array_equal(
+        got, ref.neighbor_table(grid, periodic=True)
+    )
+    numpy.testing.assert_array_equal(
+        got, port.neighbor_table(grid_from_reference(grid), (True, True, False))
+    )
+    assert (got == grid.n_cells).any()
 
 
 @pytest.mark.parametrize(

@@ -1,6 +1,8 @@
 """The port's CUDA pair kernels on the card: each against its plain
-version, the launch counts, the operand checks, and the failed-build
-rule.  Every test here needs an NVIDIA GPU and skips without one; the
+version (the two-tier roles, the wide single-tier roles at K = 96, 128
+and 256 with prefix and arbitrary masks, the ghost-halo route against
+the wrapped-table route), the launch counts, the operand checks, and the
+failed-build rule.  Every test here needs an NVIDIA GPU and skips without one; the
 file imports nothing of JAX, so it runs on a machine that has only the
 port's dependencies:
 
@@ -17,9 +19,22 @@ import torch
 
 from tpgsd_torch import _build
 from tpgsd_torch.entry import entry
-from tpgsd_torch.sph import dam_break, init_density, make_step_fn, ops
+from tpgsd_torch.sph import (
+    SPHParams,
+    SPHState,
+    dam_break,
+    init_density,
+    make_grid,
+    make_step_fn,
+    ops,
+    still_box,
+)
 from tpgsd_torch.sph import kernels as port_kernels
-from tpgsd_torch.sph.cells import build_cells_spill, scatter_to_cells_soa
+from tpgsd_torch.sph.cells import (
+    build_cells,
+    build_cells_spill,
+    scatter_to_cells_soa,
+)
 from tpgsd_torch.sph.step import tait_pressure
 
 K = 24
@@ -30,6 +45,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     return torch.device("cuda")
+
+
+def _launched():
+    """The roles launched since the counts were reset."""
+    return {k: v for k, v in ops.launch_counts.items() if v}
 
 
 def _scaled_close(got, want, live, rtol, atol):
@@ -82,10 +102,9 @@ def test_spill_kernels_match_plain(cuda, kernel):
     torch.cuda.synchronize()
     for tier in range(2):
         _scaled_close(got[tier], want[tier], live[tier], 1e-4, 1e-5)
-    assert ops.launch_counts == {
+    assert _launched() == {
         "density_self": 2, "density_cross": 2,
         "accel_self": 2, "accel_cross": 2,
-        "accel_drho_self": 0, "accel_drho_cross": 0,
     }
 
 
@@ -135,8 +154,11 @@ def test_kernel_operands_are_checked(cuda):
         ops.density_pairs(bad, m, x, m, grid, params)
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.density_pairs(x, m.cpu(), x, m, grid, params)
-    with pytest.raises(ValueError, match="capacity"):
-        ops.density_pairs(x, m, x, m, grid._replace(capacity=72), params)
+    with pytest.raises(ValueError, match="capacity <= 1024"):
+        ops.density_pairs(
+            x, m, x, m, grid._replace(capacity=ops.MAX_WIDE_CAPACITY + 8),
+            params,
+        )
 
 
 @pytest.mark.cuda
@@ -154,16 +176,31 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, tmp_path, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "capacity, spill", [(72, "auto"), (72, True), (32, False)]
+    "capacity, spill, role",
+    [(72, "auto", "wide"), (72, True, None), (32, False, "self")],
 )
-def test_auto_policy_on_cuda_never_runs_the_plain_passes(cuda, capacity, spill):
+def test_auto_policy_on_cuda_never_runs_the_plain_passes(
+    cuda, capacity, spill, role
+):
+    """On the card "auto" means a kernel: the single tier launches the
+    wide kernels past 64 slots and the self role up to it; the two-tier
+    layout past 64 slots raises."""
     db = dam_break(n_side=6, capacity=capacity, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2, kernels 7-9"):
-        make_step_fn(db.grid, db.params, spill=spill, device=cuda)
-    step = make_step_fn(
+    if role is None:
+        with pytest.raises(ValueError, match="two-tier spill kernels"):
+            make_step_fn(db.grid, db.params, spill=spill, device=cuda)
+        return
+    step = make_step_fn(db.grid, db.params, spill=spill, device=cuda)
+    assert step.resolved == {
+        "use_kernels": True, "spill": False, "density_mode": "summation"
+    }
+    ops.reset_launch_counts()
+    step(db.state)
+    assert _launched() == {"density_" + role: 1, "accel_" + role: 1}
+    plain = make_step_fn(
         db.grid, db.params, use_kernels=False, spill=spill, device=cuda
     )
-    assert not step.resolved["use_kernels"]
+    assert not plain.resolved["use_kernels"]
 
 
 @pytest.mark.cuda
@@ -184,10 +221,9 @@ def test_kernel_step_matches_plain_step(cuda):
     sk, (rho_k, _, _) = step_k(state)
     sp, (rho_p, _, _) = step_p(state)
     torch.cuda.synchronize()
-    assert {k: v for k, v in ops.launch_counts.items() if "drho" not in k} == {
+    assert _launched() == {
         "density_self": 2, "density_cross": 2, "accel_self": 2, "accel_cross": 2
     }
-    assert ops.launch_counts["accel_drho_self"] == 0
     numpy.testing.assert_allclose(
         sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6
     )
@@ -223,10 +259,7 @@ def test_kernel_continuity_step_matches_plain_step(cuda):
     sk, _ = step_k(state)
     sp, _ = step_p(state)
     torch.cuda.synchronize()
-    assert ops.launch_counts == {
-        "density_self": 0, "density_cross": 0, "accel_self": 0,
-        "accel_cross": 0, "accel_drho_self": 2, "accel_drho_cross": 2,
-    }
+    assert _launched() == {"accel_drho_self": 2, "accel_drho_cross": 2}
     numpy.testing.assert_allclose(
         sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6
     )
@@ -255,4 +288,233 @@ def test_init_density_on_the_card_matches_the_plain_pass(cuda):
     )
     numpy.testing.assert_allclose(
         got.rho.cpu().numpy(), want.rho.numpy(), rtol=1e-5
+    )
+
+
+# --------------------------------------------------------------------------
+# the wide single-tier kernels (K > 64) and the periodic ghost halo
+# --------------------------------------------------------------------------
+
+
+def _finish(rho, m, params):
+    rho = torch.where(m, torch.clamp(rho, min=0.1 * params.rho0), params.rho0)
+    return rho, torch.where(m, tait_pressure(rho, params), 0.0)
+
+
+def _cloud_tier(dev, capacity, arbitrary, seed=7):
+    """One tier ``(x, v, rho, p, mask)`` of a random cloud with a dense
+    corner (cells there hold about 150 particles, the others about 6, so
+    wide cells have several live groups of 32 slots and most have one),
+    with N(0, 1) velocities.  ``arbitrary`` permutes the slots of every
+    cell, which turns the prefix masks into arbitrary ones."""
+    rng = numpy.random.default_rng(seed)
+    x = rng.uniform(0.02, 0.98, (3800, 3))
+    x[:800] = 0.03 + 0.22 * rng.uniform(0, 1, (800, 3))
+    v = rng.standard_normal(x.shape)
+    xv = torch.from_numpy(numpy.concatenate([x, v], 1).astype(numpy.float32))
+    xv = xv.to(dev)
+    h = 0.06
+    grid = make_grid((0, 0, 0), (1, 1, 1), 2 * h, capacity)
+    params = SPHParams(mass=1000.0 / 3800, h=h, dt=1e-4, rho0=1000.0)
+    cells = build_cells(xv[:, :3].contiguous(), grid)
+    soa = scatter_to_cells_soa(xv, cells, grid)
+    m = cells.mask[: grid.n_cells]
+    if arbitrary:
+        perm = torch.from_numpy(
+            rng.permuted(numpy.tile(numpy.arange(capacity), (grid.n_cells, 1)),
+                         axis=1)
+        ).to(dev)
+        m = torch.gather(m, 1, perm)
+        soa = torch.gather(soa, 2, perm.expand(6, -1, -1)).contiguous()
+        assert not bool(m[:, 0].all()), "the masks must not be prefixes"
+    rho = ops.density_plain(soa[:3], m, grid, params)
+    rho, p = _finish(rho, m, params)
+    return grid, params, (soa[:3], soa[3:], rho, p, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arbitrary", [False, True], ids=["prefix", "arbitrary"])
+@pytest.mark.parametrize("capacity", [96, 128, 256])
+def test_wide_kernels_match_plain(cuda, capacity, arbitrary):
+    """Each wide role against its plain version, every output plane scaled
+    by its max; dead centre slots are exactly 0."""
+    grid, params, tier = _cloud_tier(cuda, capacity, arbitrary)
+    x, m = tier[0], tier[4]
+    live = m.cpu().numpy()
+    assert live[:, 64:].any(), "some cell must fill its third group of slots"
+    ops.reset_launch_counts()
+    for kernel in (port_kernels.WendlandC2, port_kernels.CubicSpline):
+        got = ops.density(x, m, grid, params, kernel=kernel)
+        want = ops.density_plain(x, m, grid, params, kernel=kernel)
+        assert not bool(got[~m].any())
+        _scaled_close(got, want, live, 1e-5, 1e-6)
+        got = ops.accel(*tier, grid, params, kernel=kernel)
+        want = ops.accel_plain(*tier, grid, params, kernel=kernel)
+        assert got.shape == (3, grid.n_cells, capacity)
+        assert not bool(got[:, ~m].any())
+        for col in range(3):
+            _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
+        for delta_sph in (0.0, 0.1):
+            kw = {"kernel": kernel, "delta_sph": delta_sph}
+            got = ops.accel_drho(*tier, grid, params, **kw)
+            want = ops.accel_drho_plain(*tier, grid, params, **kw)
+            assert got.shape == (4, grid.n_cells, capacity)
+            assert not bool(got[:, ~m].any())
+            for col in range(4):
+                _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
+    torch.cuda.synchronize()
+    assert _launched() == {
+        "density_wide": 2, "accel_wide": 2, "accel_drho_wide": 4
+    }
+
+
+def _periodic_box(dev, seed=11):
+    """``still_box(n_side=12)`` (4 x 4 x 4 cells of about 27 particles)
+    with a jitter of 5% of the spacing and N(0, 0.5) velocities."""
+    sc = still_box(n_side=12, device="cpu")
+    rng = numpy.random.default_rng(seed)
+    x = sc.state.x.numpy()
+    x = x + (0.05 / 12) * rng.standard_normal(x.shape)
+    v = 0.5 * rng.standard_normal(x.shape)
+    state = SPHState(
+        x=torch.from_numpy(x.astype(numpy.float32)).to(dev),
+        v=torch.from_numpy(v.astype(numpy.float32)).to(dev),
+    )
+    return sc, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [48, 128])
+def test_ghost_halo_kernels_match_wrapped_plain(cuda, capacity):
+    """The single-tier entry points with ``wrap_axes``: kernels on the
+    ghost halo against the plain passes on the wrapped neighbour table
+    with minimum-image separations."""
+    sc, state = _periodic_box(cuda)
+    grid, params = sc.grid._replace(capacity=capacity), sc.params
+    wrap = (True, True, True)
+    cells = build_cells(state.x, grid)
+    assert int(cells.overflow) == 0
+    soa = scatter_to_cells_soa(torch.cat([state.x, state.v], 1), cells, grid)
+    m = cells.mask[: grid.n_cells]
+    live = m.cpu().numpy()
+    ops.reset_launch_counts()
+    got = ops.density(soa[:3], m, grid, params, wrap_axes=wrap)
+    want = ops.density_plain(soa[:3], m, grid, params, wrap_axes=wrap)
+    _scaled_close(got, want, live, 1e-5, 1e-6)
+    # a periodic lattice has no wall deficit (walls would halve rho there)
+    assert float(want[m].min()) > 0.8 * float(want[m].max())
+    tier = (soa[:3], soa[3:], *_finish(want, m, params), m)
+    got = ops.accel(*tier, grid, params, wrap_axes=wrap)
+    want = ops.accel_plain(*tier, grid, params, wrap_axes=wrap)
+    for col in range(3):
+        _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
+    got = ops.accel_drho(*tier, grid, params, wrap_axes=wrap)
+    want = ops.accel_drho_plain(*tier, grid, params, wrap_axes=wrap)
+    for col in range(4):
+        _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
+    role = "wide" if capacity > 64 else "self"
+    assert _launched() == {
+        "density_" + role: 1, "accel_" + role: 1, "accel_drho_" + role: 1
+    }
+
+
+@pytest.mark.cuda
+def test_ghost_halo_spill_kernels_match_wrapped_plain(cuda):
+    """The two-tier entry points with ``wrap_axes`` at K = 16 (the spill
+    tier is occupied), ghost halo against wrapped table."""
+    sc, state = _periodic_box(cuda)
+    k = 16
+    grid, params = sc.grid._replace(capacity=k), sc.params
+    wrap = (True, True, True)
+    cells, sp = build_cells_spill(state.x, grid, k)
+    assert int(cells.overflow) == 0 and bool(sp.mask.any())
+    xv = torch.cat([state.x, state.v], 1)
+    a = scatter_to_cells_soa(xv, cells, grid)
+    b = scatter_to_cells_soa(xv, cells, grid, slot_base=k, capacity=k)
+    c = grid.n_cells
+    ma, mb = cells.mask[:c], sp.mask[:c]
+    live = (ma.cpu().numpy(), mb.cpu().numpy())
+    args = (a[:3], ma, b[:3], mb, grid, params)
+    got = ops.density_spill(*args, wrap_axes=wrap)
+    want = ops.density_spill_plain(*args, wrap_axes=wrap)
+    for t in range(2):
+        _scaled_close(got[t], want[t], live[t], 1e-5, 1e-6)
+    ta = (a[:3], a[3:], *_finish(want[0], ma, params), ma)
+    tb = (b[:3], b[3:], *_finish(want[1], mb, params), mb)
+    for fn, plain, cols in (
+        (ops.accel_spill, ops.accel_spill_plain, 3),
+        (ops.accel_drho_spill, ops.accel_drho_spill_plain, 4),
+    ):
+        got = fn(*ta, *tb, grid, params, wrap_axes=wrap)
+        want = plain(*ta, *tb, grid, params, wrap_axes=wrap)
+        for t in range(2):
+            for col in range(cols):
+                _scaled_close(got[t][..., col], want[t][..., col], live[t],
+                              1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+@pytest.mark.parametrize(
+    "scenario, capacity", [("dam_break", 128), ("periodic", 128),
+                           ("periodic", 16)],
+    ids=["wide", "periodic_wide", "periodic_spill"],
+)
+def test_single_tier_and_periodic_kernel_steps_match_plain_steps(
+    cuda, scenario, capacity, density_mode
+):
+    """Three steps of the "auto" kernel step (the wide single tier at K =
+    128; the periodic box on the wide layout and on the two-tier layout
+    at K = 16 + 16) against the single-tier plain step, which takes the
+    wrapped table and the minimum image where the kernels take the ghost
+    halo.  The change of the carried density over the steps is held as in
+    test_kernel_continuity_step_matches_plain_step."""
+    periodic = scenario == "periodic"
+    if periodic:
+        sc, state = _periodic_box(cuda)
+        grid, params = sc.grid._replace(capacity=capacity), sc.params
+    else:
+        db = dam_break(n_side=10, capacity=capacity, device=cuda)
+        rng = numpy.random.default_rng(5)
+        dv = 0.1 * rng.standard_normal(tuple(db.state.v.shape))
+        state = db.state._replace(
+            v=torch.from_numpy(dv.astype(numpy.float32)).to(cuda))
+        grid, params = db.grid, db.params
+    kw = {"periodic": periodic, "density_mode": density_mode, "device": cuda}
+    step_k = make_step_fn(grid, params, **kw)
+    spill = capacity <= 64
+    assert step_k.resolved == {
+        "use_kernels": True, "spill": spill, "density_mode": density_mode
+    }
+    plain_grid = grid._replace(capacity=2 * capacity) if spill else grid
+    step_p = make_step_fn(plain_grid, params, use_kernels=False, spill=False,
+                          **kw)
+    if density_mode == "continuity":
+        state = init_density(state, plain_grid, params, periodic=periodic,
+                             device=cuda)
+    ops.reset_launch_counts()
+    sk = sp = state
+    for _ in range(3):
+        sk, (rho_k, _, ov_k) = step_k(sk)
+        sp, (rho_p, _, ov_p) = step_p(sp)
+        assert int(ov_k) == int(ov_p) == 0
+    family = "accel_drho" if density_mode == "continuity" else "accel"
+    want = ({family + "_self": 6, family + "_cross": 6} if spill
+            else {family + "_wide": 3})
+    if density_mode == "summation":
+        want.update({"density_self": 6, "density_cross": 6} if spill
+                    else {"density_wide": 3})
+    assert _launched() == want
+    numpy.testing.assert_allclose(
+        sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6
+    )
+    if density_mode == "summation":
+        _scaled_close(rho_k, rho_p, numpy.ones(rho_p.shape, bool), 1e-5, 1e-6)
+        return
+    d_k = (sk.rho - state.rho).cpu().numpy()
+    d_p = (sp.rho - state.rho).cpu().numpy()
+    scale = float(numpy.abs(d_p).max())
+    assert scale > 100 * 2.5e-4, "the steps must change the carried density"
+    numpy.testing.assert_allclose(
+        d_k / scale, d_p / scale, rtol=1e-4, atol=1e-5 + 3 * 2.5e-4 / scale
     )

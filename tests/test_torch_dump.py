@@ -120,6 +120,11 @@ _STANDALONE = textwrap.dedent(
             last = traj[-1].particles
             assert numpy.array_equal(last.density, state.rho.numpy())
             assert numpy.array_equal(last.position, state.x.numpy())
+    from tpgsd_torch.sph import make_step_fn, taylor_green
+    vortex = taylor_green(n_side=12, device="cpu")
+    spin = make_step_fn(vortex.grid, vortex.params, periodic=True, device="cpu")
+    moved, _aux = spin(vortex.state)
+    assert moved.x.shape == vortex.state.x.shape
     assert sys.modules["jax"] is None and sys.modules["tpgsd"] is None
     assert not [m for m in sys.modules if m.startswith(("jax.", "tpgsd."))]
     print("STANDALONE_OK")

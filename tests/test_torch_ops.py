@@ -355,14 +355,21 @@ def test_pressure_plane_folds_the_reference_constant():
 
 
 def test_kernel_capacity_gate():
+    """Up to 64 slots the two-tier kernels; past it the wide kernels, for
+    the single tier only; past their limit nothing."""
     grid = grid_from_reference(ref_dam_break(n_side=6, capacity=32).grid)
     assert ops.spill_supported(grid)
     assert ops.spill_supported(grid._replace(capacity=64))
     assert not ops.spill_supported(grid._replace(capacity=72))
-    assert ops.accel_drho_supported(grid)
-    assert not ops.accel_drho_supported(grid._replace(capacity=72))
-    with pytest.raises(ValueError, match="queue 2, kernels 7-9"):
-        ops._check_launch(grid._replace(capacity=72), (), (), ())
+    for capacity in (32, 72, 96, 128, 256, ops.MAX_WIDE_CAPACITY):
+        wide = grid._replace(capacity=capacity)
+        assert ops.supported(wide) and ops.accel_drho_supported(wide)
+        key = ops._role_key("accel", wide, "self")
+        assert key == ("accel_wide" if capacity > 64 else "accel_self")
+    past = grid._replace(capacity=ops.MAX_WIDE_CAPACITY + 8)
+    assert not ops.supported(past) and not ops.accel_drho_supported(past)
+    with pytest.raises(ValueError, match="capacity <= 1024; got 1032"):
+        ops._check_launch(past, (), (), ())
 
 
 def test_non_cpu_tensor_with_failed_build_raises(monkeypatch, tmp_path):

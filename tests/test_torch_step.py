@@ -29,9 +29,15 @@ from tpgsd_torch.io_runtime import AsyncDumpRunner
 from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
 from tpgsd_torch.sph import (
     dam_break,
+    dam_break_2d,
     density_and_pressure,
+    hydrostatic_tank,
     init_density,
     make_step_fn,
+    ops,
+    still_box,
+    still_box_2d,
+    taylor_green,
 )
 from tpgsd_torch.sph.convert import (
     grid_from_reference,
@@ -200,6 +206,11 @@ def test_auto_policy_on_cpu(use_kernels, spill, want):
         (72, False, "auto", (False, False)),
         (72, False, True, (False, True)),
         (32, False, False, (False, False)),
+        (128, "auto", "auto", (True, False)),
+        (72, "auto", "auto", (True, False)),
+        (256, True, False, (True, False)),
+        (32, "auto", False, (True, False)),
+        (32, True, False, (True, False)),
     ],
 )
 def test_policy_on_cuda(capacity, use_kernels, spill, want):
@@ -208,16 +219,20 @@ def test_policy_on_cuda(capacity, use_kernels, spill, want):
 
 
 @pytest.mark.parametrize(
-    "capacity, use_kernels, spill",
-    [(72, "auto", "auto"), (72, True, True), (32, "auto", False),
-     (32, True, False)],
+    "capacity, use_kernels, spill, limit",
+    [(1032, "auto", "auto", 1024), (1032, True, False, 1024),
+     (128, "auto", True, 64), (72, True, True, 64)],
 )
 def test_policy_on_cuda_raises_where_the_kernels_do_not_apply(
-    capacity, use_kernels, spill
+    capacity, use_kernels, spill, limit
 ):
-    """No quiet plain path on the card: "auto" raises like True does."""
+    """No quiet plain path on the card: "auto" raises like True does, with
+    ``ValueError`` as the reference does for ``spill=True`` at a capacity
+    its two-tier kernels do not take, and the message names the limit."""
     grid = _small()[0]._replace(capacity=capacity)
-    with pytest.raises(NotImplementedError, match="queue 2, kernels 7-9"):
+    with pytest.raises(
+        ValueError, match="capacity <= %d; got %d" % (limit, capacity)
+    ):
         resolve_policy("cuda", grid, use_kernels, spill)
 
 
@@ -230,12 +245,12 @@ def test_kernels_on_cpu_raise():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"periodic": True},
+        {"periodic": True, "xsph": 0.5},
         {"xsph": 0.5},
         {"surface_tension": 0.1},
         {"sharding": 4},
     ],
-    ids=["periodic", "xsph", "surface_tension", "sharding"],
+    ids=["periodic_xsph", "xsph", "surface_tension", "sharding"],
 )
 def test_unported_options_raise(kw):
     grid, params = _small()
@@ -394,13 +409,13 @@ def test_continuity_excludes_density_renorm():
 @pytest.mark.parametrize("spill", ["auto", False])
 def test_continuity_on_cuda_resolves_like_summation(spill):
     """One policy for both density modes: on the card "auto" means the
-    kernels on the spill layout, and the single-tier dispatch raises."""
+    kernels, on the spill layout unless the caller asks for the single
+    tier."""
     grid = _small()[0]
-    if spill == "auto":
-        assert resolve_policy("cuda", grid, "auto", spill) == (True, True)
-    else:
-        with pytest.raises(NotImplementedError, match="queue 2, kernels 7-9"):
-            resolve_policy("cuda", grid, "auto", spill)
+    want = (True, spill == "auto")
+    assert resolve_policy("cuda", grid, "auto", spill) == want
+    for mode in ("summation", "continuity"):
+        assert ops.accel_drho_supported(grid) and ops.supported(grid), mode
 
 
 def test_entry_continuity_on_cpu_carries_the_density():
@@ -415,7 +430,9 @@ def test_entry_continuity_on_cpu_carries_the_density():
 
 
 @pytest.mark.parametrize(
-    "fn", [make_step_fn, dam_break, init_density, density_and_pressure, entry],
+    "fn",
+    [make_step_fn, dam_break, init_density, density_and_pressure, entry,
+     hydrostatic_tank, still_box, dam_break_2d, still_box_2d, taylor_green],
     ids=lambda fn: fn.__name__,
 )
 def test_entry_points_default_to_the_card(fn):

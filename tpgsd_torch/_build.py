@@ -80,14 +80,16 @@ def build():
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpgsd_density_pairs.argtypes = [
-        p, p, p, p, p,  # xc, mc, xn, mn, out
-        i, i, i, i, i,  # nx, ny, nz, k, kind
-        f, f, f, f, f, f,  # inv2h, invh2, mfold, h, sigma, supp2
-        p,  # stream
-    ]
-    lib.tpgsd_density_pairs.restype = i
-    lib.tpgsd_accel_pairs.argtypes = [
+    # the wide kernels (K > 64) take the arguments of the two-tier ones
+    for density in (lib.tpgsd_density_pairs, lib.tpgsd_density_wide):
+        density.argtypes = [
+            p, p, p, p, p,  # xc, mc, xn, mn, out
+            i, i, i, i, i,  # nx, ny, nz, k, kind
+            f, f, f, f, f, f,  # inv2h, invh2, mfold, h, sigma, supp2
+            p,  # stream
+        ]
+        density.restype = i
+    accel_argtypes = [
         p, p, p, p, p,  # xc, vc, rhoc, ptc, mc
         p, p, p, p, p,  # xn, vn, rhon, ptn, mn
         p, i,  # out, n_out (3: acc; 4: acc and drho/dt)
@@ -96,7 +98,9 @@ def _declare(lib):
         f, f, f, f,  # adrho, ddfold, eta2, rho_floor (n_out = 4)
         p,  # stream
     ]
-    lib.tpgsd_accel_pairs.restype = i
+    for accel in (lib.tpgsd_accel_pairs, lib.tpgsd_accel_wide):
+        accel.argtypes = accel_argtypes
+        accel.restype = i
     lib.tpgsd_error_string.argtypes = [i]
     lib.tpgsd_error_string.restype = ctypes.c_char_p
 

@@ -1,8 +1,9 @@
 """PyTorch/CUDA WCSPH producer (counterpart of ``tpgsd.sph``).
 
-Covers summation and continuity density on the single-tier plain path
-and on the two-tier spill layout, whose pair passes run as hand-written
-CUDA kernels on the card (:mod:`tpgsd_torch.sph.ops`).
+Covers summation and continuity density on the single-tier layout and
+on the two-tier spill layout, closed and periodic boxes; the pair passes
+of both layouts run as hand-written CUDA kernels on the card
+(:mod:`tpgsd_torch.sph.ops`).
 """
 
 from .cells import (
@@ -18,6 +19,14 @@ from .cells import (
 )
 from .dam_break import DamBreak, dam_break
 from .kernels import CubicSpline, WendlandC2
+from .scenarios import (
+    Scenario,
+    dam_break_2d,
+    hydrostatic_tank,
+    still_box,
+    still_box_2d,
+    taylor_green,
+)
 from .step import (
     SPHParams,
     SPHState,
@@ -33,18 +42,24 @@ __all__ = [
     "DamBreak",
     "SPHParams",
     "SPHState",
+    "Scenario",
     "WendlandC2",
     "auto_capacity",
     "build_cells",
     "build_cells_spill",
     "dam_break",
+    "dam_break_2d",
     "density_and_pressure",
     "gather_from_cells",
+    "hydrostatic_tank",
     "init_density",
     "make_grid",
     "make_step_fn",
     "neighbor_table",
     "scatter_to_cells",
     "scatter_to_cells_soa",
+    "still_box",
+    "still_box_2d",
     "tait_pressure",
+    "taylor_green",
 ]

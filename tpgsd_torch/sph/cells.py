@@ -61,16 +61,25 @@ def auto_capacity(x, lo, hi, support, headroom=1.5):
     return max(8, int(-(-headroom * m0 // 8) * 8))
 
 
+def wrap_axes(grid, periodic):
+    """``(3,)`` bool array of the axes that wrap: those ``periodic``
+    selects (``True`` = all, or a 3-tuple of bools) that have at least 3
+    cells.  The one wrap rule of every pair path."""
+    dims = np.asarray(grid.dims)
+    if periodic is True:
+        return dims >= 3
+    return np.asarray(periodic, bool) & (dims >= 3)
+
+
 def neighbor_table(grid, periodic=False):
     """Host ``[n_cells, 27]`` int32 table of neighbor cell ids;
     out-of-range neighbors point at the sentinel row ``n_cells``.
 
-    Periodic wrap is not ported yet (ROADMAP queue 1, item 5)."""
-    if periodic is not False:
-        raise NotImplementedError(
-            "periodic neighbor tables are not ported yet (ROADMAP queue 1, "
-            "item 5)"
-        )
+    With ``periodic=True`` they wrap around instead, on every axis with
+    at least 3 cells (fewer would make a cell its own neighbor through
+    the seam and double-count pairs; such axes stay non-periodic, which
+    is right for the collapsed-z 2-D layout).  A 3-tuple of bools
+    selects the axes."""
     nx, ny, nz = grid.dims
     ix, iy, iz = np.meshgrid(
         np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
@@ -81,6 +90,7 @@ def neighbor_table(grid, periodic=False):
     )  # [27,3]
     nbr = coords[:, None, :] + offsets[None, :, :]  # [C,27,3]
     dims = np.array(grid.dims)
+    nbr = np.where(wrap_axes(grid, periodic), nbr % dims, nbr)
     valid = ((nbr >= 0) & (nbr < dims)).all(axis=2)
     lin = nbr[..., 0] * (ny * nz) + nbr[..., 1] * nz + nbr[..., 2]
     lin = np.where(valid, lin, grid.n_cells)  # sentinel

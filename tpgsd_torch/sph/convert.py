@@ -1,7 +1,9 @@
-"""Carry states, grids and parameters over from the JAX package.
+"""Carry states, grids, parameters and scenarios over from the JAX
+package.
 
 The functions take the JAX package's ``SPHState``/``CellGrid``/
-``SPHParams`` (or anything with the same fields, numpy arrays included)
+``SPHParams``/``Scenario`` (or anything with the same fields, numpy
+arrays included)
 by duck typing, so this module imports nothing of ``tpgsd.sph``.  They
 let both packages step the same input.
 """
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from .cells import CellGrid
+from .scenarios import Scenario
 from .step import SPHParams, SPHState
 
 
@@ -41,4 +44,17 @@ def params_from_reference(params):
         gravity=tuple(float(g) for g in params.gravity),
         dim=int(params.dim),
         **fields,
+    )
+
+
+def scenario_from_reference(scenario, device):
+    """The port's :class:`Scenario` on ``device`` with the state, grid,
+    parameters and sizes of ``scenario``."""
+    return Scenario(
+        state=state_from_numpy(scenario.state.x, scenario.state.v, device),
+        grid=grid_from_reference(scenario.grid),
+        params=params_from_reference(scenario.params),
+        box=tuple(scenario.box),
+        n=int(scenario.n),
+        n_fixed=int(scenario.n_fixed),
     )

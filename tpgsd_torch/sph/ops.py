@@ -1,10 +1,9 @@
-"""Pair passes of the two-tier (spill) step: hand-written CUDA kernels and
-their plain versions (torch counterpart of the spill entry points of
+"""Pair passes of the SPH step: hand-written CUDA kernels and their plain
+versions (torch counterpart of the entry points of
 ``tpgsd.sph.pallas_ops``).
 
-Three CUDA kernels (``tpgsd_torch/csrc/sph_pairs.cu``) replace the six
-packed Pallas kernels of the spill step (summation and continuity
-density mode):
+The CUDA kernels (``tpgsd_torch/csrc/sph_pairs.cu``) replace the nine
+Pallas kernels of the step (summation and continuity density mode):
 
 ========================  ==============================================
 wrapper (role)            replaces (tpgsd/sph/pallas_ops.py)
@@ -15,20 +14,38 @@ accel_pairs (self)        ``_accel_kernel_packed`` (AA and BB)
 accel_pairs (cross)       ``_accel_kernel_packed_cross`` (AB and BA)
 accel_drho_pairs (self)   ``_accel_drho_kernel_packed`` (AA and BB)
 accel_drho_pairs (cross)  ``_accel_drho_kernel_packed_cross`` (AB and BA)
+density (wide)            ``_density_kernel`` (single tier, K > 64)
+accel (wide)              ``_accel_kernel`` (single tier, K > 64)
+accel_drho (wide)         ``_accel_drho_kernel`` (single tier, K > 64)
 ========================  ==============================================
 
 A self pass and a cross pass differ only in which tier holds the centres
 and which the neighbours, so each wrapper takes both tiers explicitly.
+The single-tier entry points :func:`density`, :func:`accel` and
+:func:`accel_drho` dispatch as the reference does: up to 64 slots per
+cell they launch the same kernels in their self role, past it the wide
+kernels, which walk a cell's slots in groups of 32 and skip the dead
+groups of a sparsely filled wide cell.
 What bounds the kernels on the H100 is the pair arithmetic and the L2
-re-reads of each neighbour cell; the design (one warp per cell, the
-neighbour cell staged in shared memory, sums in registers, warp-vote
-skips of empty cells) is described at the top of the CUDA source.
+re-reads of each neighbour cell; the designs are described at the top of
+the CUDA source.
+
+Periodic axes (``wrap_axes``) reach every kernel as a pre-shifted ghost-
+cell halo: the dense layout grows one ghost layer per wrapped axis, each
+ghost cell a copy of its periodic image with positions shifted by the
+domain extent, the unchanged kernels run on the ghost grid, and the
+interior rows are selected back.  The plain versions take the wrapped
+neighbour table and minimum-image separations instead, so the two routes
+are independent.
 
 Dispatch rule: a tensor on the CPU takes the plain version; a CUDA
 tensor launches the kernel or raises.  There is no fallback.  Each
 wrapper adds one to :data:`launch_counts` where it launches its kernel.
 """
 
+import functools
+
+import numpy as np
 import torch
 
 from .. import _build
@@ -37,11 +54,16 @@ from .step import (
     _accel_blocks,
     _accel_drho_blocks,
     _density_blocks,
+    minimum_image,
     neighbor_index,
 )
 
-#: slots per cell the CUDA kernels take (each lane owns <= 2 centres)
+#: slots per cell the two-tier kernels take (each lane owns <= 2 centres)
 MAX_CAPACITY = 64
+#: slots per cell the wide kernels are admitted for.  They take any K;
+#: one warp walks the K/32 centre groups of its cell in turn, so a cell
+#: list this wide would better be a finer grid
+MAX_WIDE_CAPACITY = 1024
 
 #: kernel launches per role since the last :func:`reset_launch_counts`
 launch_counts = {
@@ -51,6 +73,9 @@ launch_counts = {
     "accel_cross": 0,
     "accel_drho_self": 0,
     "accel_drho_cross": 0,
+    "density_wide": 0,
+    "accel_wide": 0,
+    "accel_drho_wide": 0,
 }
 
 
@@ -59,20 +84,36 @@ def reset_launch_counts():
         launch_counts[key] = 0
 
 
+def supported(grid):
+    """True when some CUDA pair kernel takes ``grid.capacity`` slots per
+    cell: the two-tier kernels up to :data:`MAX_CAPACITY`, the wide
+    kernels past it."""
+    return 1 <= grid.capacity <= MAX_WIDE_CAPACITY
+
+
 def spill_supported(grid):
-    """True when the CUDA pair kernels take ``grid.capacity`` slots per
-    cell (both tiers of the spill layout have that capacity)."""
+    """True when the two-tier spill path applies: both tiers have
+    ``grid.capacity`` slots per cell, which the two-tier kernels take up
+    to :data:`MAX_CAPACITY`."""
     return 1 <= grid.capacity <= MAX_CAPACITY
 
 
 def accel_drho_supported(grid):
-    """True when the fused momentum + continuity kernel takes
+    """True when a fused momentum + continuity kernel takes
     ``grid.capacity`` (the same capacities as the other pair kernels)."""
-    return spill_supported(grid)
+    return supported(grid)
 
 
 def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _wrapped(wrap_axes):
+    """``wrap_axes`` as a tuple of 3 bools, or ``None`` when no axis
+    wraps."""
+    if wrap_axes is None or not any(wrap_axes):
+        return None
+    return tuple(map(bool, wrap_axes))
 
 
 # --------------------------------------------------------------------------
@@ -132,13 +173,12 @@ def pressure_plane(rho, p, params, kernel=WendlandC2):
 def _check_launch(grid, planes, fields, masks):
     """Validate the operands of one launch: CUDA, one device, float32
     planes ``[3, C, K]`` and fields ``[C, K]``, bool masks ``[C, K]``,
-    all contiguous, ``1 <= K <= MAX_CAPACITY``."""
+    all contiguous, ``1 <= K <= MAX_WIDE_CAPACITY``."""
     c, k = grid.n_cells, grid.capacity
-    if not spill_supported(grid):
+    if not supported(grid):
         raise ValueError(
-            "the CUDA pair kernels take 1 <= capacity <= %d; capacity %d "
-            "needs the lane-padded kernels (ROADMAP queue 2, kernels 7-9)"
-            % (MAX_CAPACITY, k)
+            "the CUDA pair kernels take 1 <= capacity <= %d; got %d"
+            % (MAX_WIDE_CAPACITY, k)
         )
     dev = planes[0].device
     for t, shape, dtype in (
@@ -168,7 +208,15 @@ def _raise_on(lib, rc, name):
         )
 
 
+def _role_key(family, grid, role):
+    """The :data:`launch_counts` key of one launch: past
+    :data:`MAX_CAPACITY` slots every pass goes to the wide kernel."""
+    return "%s_%s" % (family, "wide" if grid.capacity > MAX_CAPACITY else role)
+
+
 def _launch_density(xc, mc, xn, mn, grid, params, kernel, role):
+    """One launch of the density kernel -> ``[C, K]``: ``density_pairs``
+    up to :data:`MAX_CAPACITY` slots, the wide kernel past it."""
     lib = _build.load()
     _check_launch(grid, (xc, xn), (), (mc, mn))
     code = kernel_code(kernel)
@@ -179,14 +227,17 @@ def _launch_density(xc, mc, xn, mn, grid, params, kernel, role):
     nx, ny, nz = grid.dims
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpgsd_density_pairs(
+        wide = grid.capacity > MAX_CAPACITY
+        launch = lib.tpgsd_density_wide if wide else lib.tpgsd_density_pairs
+        rc = launch(
             xc.data_ptr(), mc.data_ptr(), xn.data_ptr(), mn.data_ptr(),
             out.data_ptr(), nx, ny, nz, grid.capacity, code,
             inv2h, invh2, mfold, h, kernel._sigma(h, params.dim), supp2,
             stream,
         )
-    _raise_on(lib, rc, "density_pairs")
-    launch_counts["density_" + role] += 1
+    key = _role_key("density", grid, role)
+    _raise_on(lib, rc, key)
+    launch_counts[key] += 1
     return out
 
 
@@ -195,7 +246,8 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
     """One launch of the momentum kernel -> ``[3, C, K]``, or with
     ``delta_sph`` (a number, 0 included) of its fused momentum +
     continuity instance -> ``[4, C, K]``, counted as ``accel_<role>`` or
-    ``accel_drho_<role>``."""
+    ``accel_drho_<role>``; past :data:`MAX_CAPACITY` slots the wide
+    kernel's instances, counted as ``accel_wide`` and ``accel_drho_wide``."""
     lib = _build.load()
     _check_launch(grid, (xc, vc, xn, vn), (rhoc, ptc, rhon, ptn), (mc, mn))
     code = kernel_code(kernel)
@@ -211,7 +263,9 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
     nx, ny, nz = grid.dims
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpgsd_accel_pairs(
+        wide = grid.capacity > MAX_CAPACITY
+        launch = lib.tpgsd_accel_wide if wide else lib.tpgsd_accel_pairs
+        rc = launch(
             xc.data_ptr(), vc.data_ptr(), rhoc.data_ptr(), ptc.data_ptr(),
             mc.data_ptr(), xn.data_ptr(), vn.data_ptr(), rhon.data_ptr(),
             ptn.data_ptr(), mn.data_ptr(), out.data_ptr(), n_out,
@@ -219,8 +273,9 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
             0.5 / h, h, kernel._sigma(h, params.dim), h2eps, cv, supp2,
             *folds, stream,
         )
-    _raise_on(lib, rc, name + "_pairs")
-    launch_counts["%s_%s" % (name, role)] += 1
+    key = _role_key(name, grid, role)
+    _raise_on(lib, rc, key)
+    launch_counts[key] += 1
     return out
 
 
@@ -229,10 +284,15 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
 # --------------------------------------------------------------------------
 
 
-def density_pairs_plain(xc, mc, xn, mn, grid, params, kernel=WendlandC2):
-    """Plain version of :func:`density_pairs`."""
-    nbr = neighbor_index(grid, xc.device)
-    return _density_blocks(xc, mc, xn, mn, nbr, params, kernel)
+def density_pairs_plain(xc, mc, xn, mn, grid, params, kernel=WendlandC2,
+                        wrap_axes=None):
+    """Plain version of :func:`density_pairs`; ``wrap_axes`` wraps these
+    axes through the neighbour table and the minimum image."""
+    periodic = _wrapped(wrap_axes) or False
+    return _density_blocks(
+        xc, mc, xn, mn, neighbor_index(grid, xc.device, periodic), params,
+        kernel, minimum_image(grid, xc.device, periodic),
+    )
 
 
 def density_pairs(xc, mc, xn, mn, grid, params, kernel=WendlandC2,
@@ -250,11 +310,14 @@ def density_pairs(xc, mc, xn, mn, grid, params, kernel=WendlandC2,
 
 
 def accel_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid,
-                      params, kernel=WendlandC2):
-    """Plain version of :func:`accel_pairs`."""
-    nbr = neighbor_index(grid, xc.device)
+                      params, kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`accel_pairs`; ``wrap_axes`` as in
+    :func:`density_pairs_plain`."""
+    periodic = _wrapped(wrap_axes) or False
     return _accel_blocks(
-        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn,
+        neighbor_index(grid, xc.device, periodic), params, kernel,
+        minimum_image(grid, xc.device, periodic),
     )
 
 
@@ -276,12 +339,15 @@ def accel_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
 
 
 def accel_drho_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid,
-                           params, kernel=WendlandC2, delta_sph=0.1):
-    """Plain version of :func:`accel_drho_pairs`."""
-    nbr = neighbor_index(grid, xc.device)
+                           params, kernel=WendlandC2, delta_sph=0.1,
+                           wrap_axes=None):
+    """Plain version of :func:`accel_drho_pairs`; ``wrap_axes`` as in
+    :func:`density_pairs_plain`."""
+    periodic = _wrapped(wrap_axes) or False
     return _accel_drho_blocks(
-        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
-        delta_sph,
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn,
+        neighbor_index(grid, xc.device, periodic), params, kernel, delta_sph,
+        minimum_image(grid, xc.device, periodic),
     )
 
 
@@ -307,19 +373,201 @@ def accel_drho_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
 
 
 # --------------------------------------------------------------------------
+# periodic boundaries: pre-shifted ghost-cell halos
+# (pallas_ops._ghost_maps / _ghost_tier)
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _ghost_maps(grid, wrap_axes):
+    """Host ghost-halo maps for ``wrap_axes`` (a tuple of 3 bools).
+
+    Returns ``(ghost_grid, src, shift, interior)``: ``src[Cg]`` is each
+    ghost-grid cell's source cell id in the original grid, ``shift[Cg,
+    3]`` the periodic-image position offset, ``interior[C]`` the
+    ghost-linear ids of the original cells in original order.
+    """
+    _, ny, nz = grid.dims
+    g = grid._replace(
+        dims=tuple(d + 2 * int(w) for d, w in zip(grid.dims, wrap_axes)),
+        lo=tuple(
+            l - grid.cell_size * int(w) for l, w in zip(grid.lo, wrap_axes)
+        ),
+    )
+    coords, images = [], []
+    for n, w in zip(grid.dims, wrap_axes):
+        c = np.arange(n + 2 * int(w)) - int(w)
+        images.append(np.where(c < 0, -1, np.where(c >= n, 1, 0)))
+        coords.append(np.mod(c, n))
+    sx, sy, sz = np.meshgrid(*coords, indexing="ij")
+    mx, my, mz = np.meshgrid(*images, indexing="ij")
+    src = ((sx * ny + sy) * nz + sz).astype(np.int32).ravel()
+    ext = grid.cell_size * np.asarray(grid.dims, np.float64)
+    shift = np.stack(
+        [mx.ravel() * ext[0], my.ravel() * ext[1], mz.ravel() * ext[2]],
+        axis=-1,
+    ).astype(np.float32)
+    interior = np.nonzero(
+        ((mx == 0) & (my == 0) & (mz == 0)).ravel()
+    )[0].astype(np.int32)
+    return g, src, shift, interior
+
+
+@functools.lru_cache(maxsize=8)
+def _ghost_index(grid, wrap_axes, device):
+    """:func:`_ghost_maps` with the index maps on ``device``: ``(ghost
+    grid, src [Cg] int64, shift [3, Cg, 1], interior [C] int64)``,
+    cached per grid, wrap tuple and device (callers must not write to
+    them)."""
+    g, src, shift, interior = _ghost_maps(grid, wrap_axes)
+    return (
+        g,
+        torch.from_numpy(src.astype(np.int64)).to(device),
+        torch.from_numpy(np.ascontiguousarray(shift.T)).to(device)[:, :, None],
+        torch.from_numpy(interior.astype(np.int64)).to(device),
+    )
+
+
+def _ghost_tier(tier, src, shift):
+    """Ghost-halo expansion of one tier ``(x [3, C, K], *fields)``: every
+    plane gathered over ``src`` along its cell axis, the positions
+    pre-shifted by the image offset."""
+    out = [t.index_select(-2, src) for t in tier]
+    out[0] = out[0] + shift
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# the single-tier entry points (pallas_ops.density / accel / accel_drho)
+# --------------------------------------------------------------------------
+
+
+def _single_tier(pairs, tier, grid, wrap_axes):
+    """One single-tier pass ``pairs(tier, grid)`` -> ``[..., C, K]``, on
+    the ghost grid and selected back to the interior rows when
+    ``wrap_axes`` wraps an axis."""
+    wrap = _wrapped(wrap_axes)
+    if wrap is None:
+        return pairs(tier, grid)
+    g, src, shift, interior = _ghost_index(grid, wrap, tier[0].device)
+    return pairs(_ghost_tier(tier, src, shift), g).index_select(-2, interior)
+
+
+def density(dense_x, mask, grid, params, kernel=WendlandC2, wrap_axes=None):
+    """Per-slot SPH density ``[C, K]`` of one tier (SoA positions ``[3,
+    C, K]``, live mask ``[C(+1), K]``): 0 in dead slots.  ``wrap_axes``
+    (3 bools) wraps these axes through a ghost-cell halo.  CPU tensors
+    take the plain pass; CUDA tensors launch ``density_pairs`` in its
+    self role up to 64 slots per cell and the wide kernel past it."""
+    def pairs(tier, g):
+        x, m = tier
+        if _on_cpu(x, m):
+            return density_pairs_plain(x, m, x, m, g, params, kernel)
+        return _launch_density(x, m, x, m, g, params, kernel, "self")
+
+    tier = (dense_x, mask[: grid.n_cells])
+    return _single_tier(pairs, tier, grid, wrap_axes)
+
+
+def density_plain(dense_x, mask, grid, params, kernel=WendlandC2,
+                  wrap_axes=None):
+    """Plain version of :func:`density` (any device; ``wrap_axes`` through
+    the wrapped neighbour table and the minimum image)."""
+    m = mask[: grid.n_cells]
+    return density_pairs_plain(
+        dense_x, m, dense_x, m, grid, params, kernel, wrap_axes
+    )
+
+
+def _accel_single_tier(tier, grid, params, kernel, delta_sph, wrap_axes):
+    """The momentum pass of one tier ``(x, v, rho, p, mask)`` -> ``[3, C,
+    K]``, or with ``delta_sph`` (a number, 0 included) the fused momentum
+    + continuity pass -> ``[4, C, K]``."""
+    c = grid.n_cells
+    tier = tier[:2] + tuple(f[:c] for f in tier[2:])
+    if _on_cpu(*tier):
+        def pairs(t, g):
+            if delta_sph is None:
+                return accel_pairs_plain(*t, *t, g, params, kernel)
+            return accel_drho_pairs_plain(
+                *t, *t, g, params, kernel, delta_sph
+            )
+    else:
+        tier = (
+            tier[:3] + (pressure_plane(tier[2], tier[3], params, kernel),)
+            + tier[4:]
+        )
+
+        def pairs(t, g):
+            return _launch_accel(*t, *t, g, params, kernel, "self", delta_sph)
+
+    return _single_tier(pairs, tier, grid, wrap_axes)
+
+
+def accel(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
+          kernel=WendlandC2, wrap_axes=None):
+    """Per-slot pressure + viscosity acceleration ``[3, C, K]`` of one
+    tier (positions and velocities ``[3, C, K]``; density, pressure and
+    live mask ``[C(+1), K]``); operands as :func:`accel_pairs`,
+    ``wrap_axes`` and dispatch as :func:`density`."""
+    return _accel_single_tier(
+        (dense_x, dense_v, dense_rho, dense_p, mask), grid, params, kernel,
+        None, wrap_axes,
+    )
+
+
+def accel_plain(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
+                kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`accel` (as :func:`density_plain`)."""
+    c = grid.n_cells
+    t = (dense_x, dense_v, dense_rho[:c], dense_p[:c], mask[:c])
+    return accel_pairs_plain(*t, *t, grid, params, kernel, wrap_axes)
+
+
+def accel_drho(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
+               kernel=WendlandC2, delta_sph=0.1, wrap_axes=None):
+    """Fused momentum + continuity pass ``[4, C, K]`` (acc_x, acc_y,
+    acc_z, drho/dt) of one tier; operands as :func:`accel_drho_pairs`,
+    ``wrap_axes`` and dispatch as :func:`density`."""
+    return _accel_single_tier(
+        (dense_x, dense_v, dense_rho, dense_p, mask), grid, params, kernel,
+        delta_sph, wrap_axes,
+    )
+
+
+def accel_drho_plain(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
+                     kernel=WendlandC2, delta_sph=0.1, wrap_axes=None):
+    """Plain version of :func:`accel_drho` (as :func:`density_plain`)."""
+    c = grid.n_cells
+    t = (dense_x, dense_v, dense_rho[:c], dense_p[:c], mask[:c])
+    return accel_drho_pairs_plain(
+        *t, *t, grid, params, kernel, delta_sph, wrap_axes
+    )
+
+
+# --------------------------------------------------------------------------
 # the two-tier entry points (pallas_ops.density_spill / accel_spill /
 # accel_drho_spill)
 # --------------------------------------------------------------------------
 
 
-def _two_tier(pairs, a, b):
+def _two_tier(pairs, a, b, grid, wrap_axes=None):
     """``(AA + AB, BB + BA)``: the two-tier sums of one pair pass
-    ``pairs(centres, neighbours, role)`` over tiers ``a`` and ``b`` (as
-    ``pallas_ops.density_spill`` / ``accel_spill`` sum them)."""
-    return (
-        pairs(a, a, "self") + pairs(a, b, "cross"),
-        pairs(b, b, "self") + pairs(b, a, "cross"),
+    ``pairs(centres, neighbours, role, grid)`` over tiers ``a`` and ``b``
+    (as ``pallas_ops.density_spill`` / ``accel_spill`` sum them), each
+    ``[..., C, K]``; with ``wrap_axes`` on the ghost halo of both tiers,
+    selected back to the interior rows."""
+    wrap = _wrapped(wrap_axes)
+    if wrap is not None:
+        grid, src, shift, interior = _ghost_index(grid, wrap, a[0].device)
+        a, b = _ghost_tier(a, src, shift), _ghost_tier(b, src, shift)
+    out = (
+        pairs(a, a, "self", grid) + pairs(a, b, "cross", grid),
+        pairs(b, b, "self", grid) + pairs(b, a, "cross", grid),
     )
+    if wrap is not None:
+        out = tuple(o.index_select(-2, interior) for o in out)
+    return out
 
 
 def _density_tiers(x_a, mask_a, x_b, mask_b, grid):
@@ -328,126 +576,136 @@ def _density_tiers(x_a, mask_a, x_b, mask_b, grid):
 
 
 def density_spill(dense_x_a, mask_a, dense_x_b, mask_b, grid, params,
-                  kernel=WendlandC2):
+                  kernel=WendlandC2, wrap_axes=None):
     """Two-tier SPH density: main tier A (slots < K) + spill tier B, SoA
     positions ``[3, C, K]`` and masks ``[C(+1), K]``.  Returns ``(rho_a,
     rho_b)``, each ``[C, K]``: ``rho_a = AA + AB``, ``rho_b = BB + BA``.
-    CPU tensors take :func:`density_spill_plain`; CUDA tensors launch the
-    density kernel four times."""
+    ``wrap_axes`` wraps these axes through a ghost-cell halo of both
+    tiers.  CPU tensors take the plain pair passes; CUDA tensors launch
+    the density kernel four times."""
     a, b = _density_tiers(dense_x_a, mask_a, dense_x_b, mask_b, grid)
     if _on_cpu(*a, *b):
-        return density_spill_plain(
-            dense_x_a, mask_a, dense_x_b, mask_b, grid, params, kernel
-        )
-    return _two_tier(
-        lambda cen, nbr, role: _launch_density(
-            *cen, *nbr, grid, params, kernel, role
-        ),
-        a, b,
-    )
+        def pairs(cen, nbr, role, g):
+            return density_pairs_plain(*cen, *nbr, g, params, kernel)
+    else:
+        def pairs(cen, nbr, role, g):
+            return _launch_density(*cen, *nbr, g, params, kernel, role)
+
+    return _two_tier(pairs, a, b, grid, wrap_axes)
 
 
 def density_spill_plain(dense_x_a, mask_a, dense_x_b, mask_b, grid, params,
-                        kernel=WendlandC2):
-    """Plain version of :func:`density_spill` (any device)."""
+                        kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`density_spill` (any device; ``wrap_axes``
+    through the wrapped neighbour table and the minimum image)."""
     a, b = _density_tiers(dense_x_a, mask_a, dense_x_b, mask_b, grid)
     return _two_tier(
-        lambda cen, nbr, role: density_pairs_plain(
-            *cen, *nbr, grid, params, kernel
+        lambda cen, nbr, role, g: density_pairs_plain(
+            *cen, *nbr, g, params, kernel, wrap_axes
         ),
-        a, b,
+        a, b, grid,
     )
 
 
-def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain):
+def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain, wrap_axes):
     """Two-tier sums ``(AA + AB, BB + BA)`` of the momentum pass, or with
     ``delta_sph`` (a number, 0 included) of the fused momentum +
     continuity pass, over tiers ``a`` and ``b`` (each ``(x, v, rho, p,
-    mask)``), as ``[C, K, F]`` views of the SoA sums.  CPU tensors, and
-    ``plain``, take the plain pair passes; CUDA tensors launch the kernel
-    four times, with each tier's pressure plane folded once for its two
-    passes."""
+    mask)``), as ``[C, K, F]`` views of the SoA sums.  ``plain`` takes
+    the plain pair passes with ``wrap_axes`` in the neighbour table and
+    the minimum image; otherwise ``wrap_axes`` is the ghost halo, on
+    which CPU tensors take the plain pair passes and CUDA tensors launch
+    the kernel four times, with each tier's pressure plane folded once
+    for its two passes."""
     c = grid.n_cells
     a, b = (t[:2] + tuple(f[:c] for f in t[2:]) for t in (a, b))
     drho = delta_sph is not None
     if plain or _on_cpu(*a, *b):
-        def pairs(cen, nbr, role):
+        table_wrap = wrap_axes if plain else None
+
+        def pairs(cen, nbr, role, g):
             if drho:
                 return accel_drho_pairs_plain(
-                    *cen, *nbr, grid, params, kernel, delta_sph
+                    *cen, *nbr, g, params, kernel, delta_sph, table_wrap
                 )
-            return accel_pairs_plain(*cen, *nbr, grid, params, kernel)
+            return accel_pairs_plain(
+                *cen, *nbr, g, params, kernel, table_wrap
+            )
     else:
         a, b = (
             t[:3] + (pressure_plane(t[2], t[3], params, kernel),) + t[4:]
             for t in (a, b)
         )
 
-        def pairs(cen, nbr, role):
+        def pairs(cen, nbr, role, g):
             return _launch_accel(
-                *cen, *nbr, grid, params, kernel, role, delta_sph
+                *cen, *nbr, g, params, kernel, role, delta_sph
             )
 
-    out_a, out_b = _two_tier(pairs, a, b)
+    out_a, out_b = _two_tier(
+        pairs, a, b, grid, None if plain else wrap_axes
+    )
     return out_a.permute(1, 2, 0), out_b.permute(1, 2, 0)
 
 
 def accel_spill(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2,
+    grid, params, kernel=WendlandC2, wrap_axes=None,
 ):
     """Two-tier SPH acceleration, the counterpart of
     :func:`density_spill`.  Returns ``(acc_a, acc_b)``, each ``[C, K,
     3]`` (views of the SoA sums): ``acc_a = AA + AB``, ``acc_b = BB +
-    BA``.  CPU tensors take :func:`accel_spill_plain`; CUDA tensors
-    launch the acceleration kernel four times."""
+    BA``.  CPU tensors take the plain pair passes; CUDA tensors launch
+    the acceleration kernel four times."""
     return _accel_two_tier(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
-        grid, params, kernel, None, plain=False,
+        grid, params, kernel, None, False, wrap_axes,
     )
 
 
 def accel_spill_plain(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2,
+    grid, params, kernel=WendlandC2, wrap_axes=None,
 ):
-    """Plain version of :func:`accel_spill` (any device)."""
+    """Plain version of :func:`accel_spill` (as
+    :func:`density_spill_plain`)."""
     return _accel_two_tier(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
-        grid, params, kernel, None, plain=True,
+        grid, params, kernel, None, True, wrap_axes,
     )
 
 
 def accel_drho_spill(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2, delta_sph=0.1,
+    grid, params, kernel=WendlandC2, delta_sph=0.1, wrap_axes=None,
 ):
     """Two-tier fused momentum + continuity pass (continuity-density mode
     on the spill layout), the drho counterpart of :func:`accel_spill`.
     Returns ``(out4_a, out4_b)``, each ``[C, K, 4]`` (views of the SoA
     sums) with columns acc_x, acc_y, acc_z, drho/dt: ``out4_a = AA + AB``,
-    ``out4_b = BB + BA``.  CPU tensors take :func:`accel_drho_spill_plain`;
-    CUDA tensors launch the fused kernel four times."""
+    ``out4_b = BB + BA``.  CPU tensors take the plain pair passes; CUDA
+    tensors launch the fused kernel four times."""
     return _accel_two_tier(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
-        grid, params, kernel, delta_sph, plain=False,
+        grid, params, kernel, delta_sph, False, wrap_axes,
     )
 
 
 def accel_drho_spill_plain(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2, delta_sph=0.1,
+    grid, params, kernel=WendlandC2, delta_sph=0.1, wrap_axes=None,
 ):
-    """Plain version of :func:`accel_drho_spill` (any device)."""
+    """Plain version of :func:`accel_drho_spill` (as
+    :func:`density_spill_plain`)."""
     return _accel_two_tier(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
-        grid, params, kernel, delta_sph, plain=True,
+        grid, params, kernel, delta_sph, True, wrap_axes,
     )

@@ -18,8 +18,12 @@ here (:func:`_density_blocks`, :func:`_accel_blocks`,
 :func:`_accel_drho_blocks`) works on the SoA
 layout ``[F, n_cells, K]`` with a centre tier and a neighbour tier, so
 it serves both the single-tier step (the tier is its own neighbour) and
-the plain versions of the spill ops in :mod:`tpgsd_torch.sph.ops`.  On
-CUDA the spill step runs the hand-written pair kernels instead.
+the plain versions of the pair ops in :mod:`tpgsd_torch.sph.ops`.  On
+CUDA both layouts run the hand-written pair kernels instead.
+
+Periodic boundaries reach the plain pair passes as a wrapped neighbour
+table plus minimum-image separations, and the kernels as a pre-shifted
+ghost-cell halo (:mod:`tpgsd_torch.sph.ops`): two independent routes.
 """
 
 import functools
@@ -34,6 +38,7 @@ from .cells import (
     gather_from_cells,
     neighbor_table,
     scatter_to_cells_soa,
+    wrap_axes,
 )
 from .kernels import WendlandC2
 
@@ -118,12 +123,24 @@ def _distance(d):
     return torch.linalg.vector_norm(d, dim=0)
 
 
-def _pair_terms(xb, vb, rhob, pb, y, vy, rhoy, py, params, kernel):
+def _min_image(diff, mimage):
+    """Wrap pair separations ``[3, ...]`` to the nearest periodic image.
+    ``mimage`` (``[3, 1, 1, 1]``, from :func:`minimum_image`) holds the
+    domain extent on wrapped axes and a huge finite sentinel on the
+    others (``round(x / huge) == 0`` leaves those components untouched;
+    an inf would give ``inf * 0 = NaN``)."""
+    if mimage is None:
+        return diff
+    return diff - mimage * torch.round(diff / mimage)
+
+
+def _pair_terms(xb, vb, rhob, pb, y, vy, rhoy, py, params, kernel,
+                mimage=None):
     """Shared pair machinery of the momentum equation on SoA blocks
     (centres ``[3, B, K, 1]``, neighbours ``[3, B, 1, 27K]``): returns
     ``(dx, dwr, press_plus_pi, vdotx)``."""
     h2eps = params.eps * params.h * params.h
-    dx = xb - y  # [3, B, K, 27K]
+    dx = _min_image(xb - y, mimage)  # [3, B, K, 27K]
     dv = vb - vy
     r2 = torch.sum(dx * dx, dim=0)
     r = _distance(dx)
@@ -144,10 +161,11 @@ def _pair_terms(xb, vb, rhob, pb, y, vy, rhoy, py, params, kernel):
     return dx, dwr, press + pi, vdotx
 
 
-def _density_blocks(xc, mc, xn, mn, nbr, params, kernel):
+def _density_blocks(xc, mc, xn, mn, nbr, params, kernel, mimage=None):
     """Plain per-slot density of centre tier ``(xc [3, C, K], mc [C, K])``
     from neighbour tier ``(xn, mn)`` over the 27-cell table ``nbr``
-    (``[C, 27]`` int64, sentinel ``C``) -> ``[C, K]``."""
+    (``[C, 27]`` int64, sentinel ``C``) -> ``[C, K]``.  A periodic ``nbr``
+    comes with its ``mimage`` (:func:`minimum_image`)."""
     c, k = mc.shape
     xn_s = _with_sentinel_cell(xn, 0.0)
     mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
@@ -156,14 +174,14 @@ def _density_blocks(xc, mc, xn, mn, nbr, params, kernel):
         nb = nbr[c0:c1]
         y = _gather_nbr(xn_s, nb)  # [3, B, 1, 27K]
         ym = _gather_nbr(mn_s, nb)  # [B, 1, 27K]
-        r = _distance(xc[:, c0:c1, :, None] - y)
+        r = _distance(_min_image(xc[:, c0:c1, :, None] - y, mimage))
         w = kernel.w(r, params.h, dim=params.dim) * ym
         out[c0:c1] = params.mass * torch.sum(w, dim=-1) * mc[c0:c1]
     return out
 
 
 def _momentum_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
-                     kernel):
+                     kernel, mimage):
     """Cell blocks of the momentum pair pass of centre tier ``c`` from
     neighbour tier ``n``: yields ``(c0, c1, dx, dwr, press_pi, vdotx, ym,
     rhob, rhoy)`` with the :func:`_pair_terms` of cells ``c0:c1``, the
@@ -184,19 +202,20 @@ def _momentum_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
             rhob, pc[c0:c1, :, None],
             _gather_nbr(xn_s, nb), _gather_nbr(vn_s, nb),
             rhoy, _gather_nbr(pn_s, nb),
-            params, kernel,
+            params, kernel, mimage,
         )
         yield c0, c1, dx, dwr, press_pi, vdotx, _gather_nbr(mn_s, nb), rhob, rhoy
 
 
 def _accel_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
-                  kernel):
+                  kernel, mimage=None):
     """Plain per-slot acceleration (pressure + viscosity) of centre tier
     ``c`` from neighbour tier ``n`` -> ``[3, C, K]``.  Dead slots must
     carry a positive density (the step sets ``rho0``, ``p = 0``)."""
     out = xc.new_empty((3,) + tuple(mc.shape))
     for c0, c1, dx, dwr, press_pi, _, ym, _, _ in _momentum_blocks(
-        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
+        mimage,
     ):
         scale = -params.mass * press_pi * dwr * ym
         acc = torch.sum(scale * dx, dim=-1)  # [3, B, K]
@@ -205,7 +224,7 @@ def _accel_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
 
 
 def _accel_drho_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
-                       params, kernel, delta_sph):
+                       params, kernel, delta_sph, mimage=None):
     """Plain fused momentum + continuity pair pass of centre tier ``c``
     from neighbour tier ``n`` -> ``[4, C, K]`` = acc3 | drho/dt.
 
@@ -219,7 +238,8 @@ def _accel_drho_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
     dcoef = 2.0 * delta_sph * params.h * params.c0 * params.mass
     out = xc.new_empty((4,) + tuple(mc.shape))
     for c0, c1, dx, dwr, press_pi, vdotx, ym, rhob, rhoy in _momentum_blocks(
-        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
+        mimage,
     ):
         scale = -params.mass * press_pi * dwr * ym  # as in _accel_blocks
         acc = torch.sum(scale * dx, dim=-1)  # [3, B, K]
@@ -232,11 +252,27 @@ def _accel_drho_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
     return out
 
 
-@functools.lru_cache(maxsize=4)
-def neighbor_index(grid, device):
+@functools.lru_cache(maxsize=8)
+def neighbor_index(grid, device, periodic=False):
     """The ``[C, 27]`` neighbour table as an int64 tensor on ``device``
-    (cached per grid and device; callers must not write to it)."""
-    return torch.from_numpy(neighbor_table(grid).astype(np.int64)).to(device)
+    (cached per grid, device and ``periodic``, which is ``False``,
+    ``True`` or a 3-tuple of bools; callers must not write to it)."""
+    table = neighbor_table(grid, periodic=periodic)
+    return torch.from_numpy(table.astype(np.int64)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def minimum_image(grid, device, periodic):
+    """``[3, 1, 1, 1]`` minimum-image extents of ``grid`` on ``device``
+    for the plain pair passes (``None`` when nothing wraps): the domain
+    extent on the axes :func:`~tpgsd_torch.sph.cells.wrap_axes` selects,
+    1e30 on the others.  Cached like :func:`neighbor_index`."""
+    wrap = wrap_axes(grid, periodic)
+    if not wrap.any():
+        return None
+    ext = grid.cell_size * np.asarray(grid.dims, np.float32)
+    m = np.where(wrap, ext, np.float32(1e30)).astype(np.float32)
+    return torch.from_numpy(m).to(device)[:, None, None, None]
 
 
 def _resolve_device(device):
@@ -257,13 +293,16 @@ def resolve_policy(device_type, grid, use_kernels="auto", spill="auto"):
     """``(use_kernels, spill)`` of :func:`make_step_fn` for states on a
     ``device_type`` (``"cuda"``, ``"cpu"``, ...) device.
 
-    On CUDA, ``"auto"`` means the kernels: a configuration they do not
-    take (a capacity past :data:`ops.MAX_CAPACITY`, or ``spill=False``)
-    raises ``NotImplementedError`` instead of running the plain pair
-    passes on the card.  Only an explicit ``use_kernels=False`` runs the
-    plain passes there.  Elsewhere ``"auto"`` is the plain path, and
-    ``spill="auto"`` follows the kernels."""
-    from .ops import MAX_CAPACITY, spill_supported
+    On CUDA, ``"auto"`` means the kernels: a capacity past what they
+    take (:func:`ops.supported`) raises ``ValueError`` naming the limit
+    instead of running the plain pair passes on the card.  Only an
+    explicit ``use_kernels=False`` runs the plain passes there.
+    Elsewhere ``"auto"`` is the plain path.  ``spill="auto"`` is the
+    two-tier layout exactly where the kernels run and take the capacity
+    as a tier (:func:`ops.spill_supported`, K <= 64); a larger capacity
+    is the single tier of the wide kernels, and ``spill=True`` with the
+    kernels raises ``ValueError`` there."""
+    from .ops import MAX_CAPACITY, MAX_WIDE_CAPACITY, spill_supported, supported
 
     on_cuda = device_type == "cuda"
     if use_kernels == "auto":
@@ -273,34 +312,36 @@ def resolve_policy(device_type, grid, use_kernels="auto", spill="auto"):
             raise ValueError(
                 "use_kernels=True needs a CUDA device; got %s" % (device_type,)
             )
-        if not spill_supported(grid):
-            raise NotImplementedError(
-                "the CUDA pair kernels take 1 <= capacity <= %d; capacity %d "
-                "needs the lane-padded kernels (ROADMAP queue 2, kernels "
-                "7-9), or use_kernels=False" % (MAX_CAPACITY, grid.capacity)
-            )
-        if spill is False:
-            raise NotImplementedError(
-                "the single-tier kernel dispatch is not ported yet "
-                "(ROADMAP queue 2, kernels 7-9); use spill=True, or "
-                "use_kernels=False"
+        if not supported(grid):
+            raise ValueError(
+                "the CUDA pair kernels take 1 <= capacity <= %d; got %d "
+                "(use_kernels=False runs the plain pair passes)"
+                % (MAX_WIDE_CAPACITY, grid.capacity)
             )
     if spill == "auto":
-        spill = bool(use_kernels)
+        spill = bool(use_kernels) and spill_supported(grid)
+    if spill and use_kernels and not spill_supported(grid):
+        raise ValueError(
+            "the two-tier spill kernels take 1 <= capacity <= %d; got %d "
+            "(a larger capacity runs single-tier: spill=False)"
+            % (MAX_CAPACITY, grid.capacity)
+        )
     return bool(use_kernels), bool(spill)
 
 
 @torch.inference_mode()
-def density_and_pressure(x, grid, params, kernel=WendlandC2,
+def density_and_pressure(x, grid, params, kernel=WendlandC2, periodic=False,
                          density_renorm=False, device="cuda"):
     """Standalone summation density + Tait pressure of a configuration:
     per-particle ``(rho, p)``, the quantities of the schema's
     ``particles/density`` / ``particles/pressure`` chunks.
 
-    On a CUDA ``device`` the pair pass runs on the two-tier spill layout
-    through the ``density_pairs`` kernel (a capacity it does not take
-    raises, see :func:`resolve_policy`); on the CPU it is the single-tier
-    plain pass.  Particles past the layout's capacity get ``rho0``.
+    The pair pass follows the step's ``"auto"`` policy
+    (:func:`resolve_policy`): on a CUDA ``device`` the two-tier spill
+    layout through the ``density_pairs`` kernel for capacities up to 64
+    and the single tier through the wide kernel past it; on the CPU the
+    single-tier plain pass.  ``periodic`` wraps the axes with at least 3
+    cells.  Particles past the layout's capacity get ``rho0``.
     """
     from . import ops  # ops imports this module's plain pair passes
 
@@ -309,14 +350,16 @@ def density_and_pressure(x, grid, params, kernel=WendlandC2,
         raise ValueError(
             "density_and_pressure on %s got positions on %s" % (dev, x.device)
         )
-    use_kernels, _ = resolve_policy(dev.type, grid)
+    use_kernels, spill = resolve_policy(dev.type, grid)
+    wrap = _wrap_tuple(grid, periodic)
     c, k = grid.n_cells, grid.capacity
-    if use_kernels:
+    if spill:
         cells, sp = build_cells_spill(x, grid, k)
         x_a = scatter_to_cells_soa(x, cells, grid)
         x_b = scatter_to_cells_soa(x, cells, grid, slot_base=k, capacity=k)
         rho_a, rho_b = ops.density_spill(
-            x_a, cells.mask, x_b, sp.mask, grid, params, kernel=kernel
+            x_a, cells.mask, x_b, sp.mask, grid, params, kernel=kernel,
+            wrap_axes=wrap,
         )
         rho_dense = torch.cat([rho_a, rho_b], dim=1)  # [C, 2K]
         mask = torch.cat([cells.mask[:c], sp.mask[:c]], dim=1)
@@ -324,10 +367,16 @@ def density_and_pressure(x, grid, params, kernel=WendlandC2,
         cells = build_cells(x, grid)
         dense_x = scatter_to_cells_soa(x, cells, grid)
         mask = cells.mask[:c]
-        rho_dense = _density_blocks(
-            dense_x, mask, dense_x, mask, neighbor_index(grid, dev), params,
-            kernel,
-        )
+        if use_kernels:
+            rho_dense = ops.density(
+                dense_x, mask, grid, params, kernel=kernel, wrap_axes=wrap
+            )
+        else:
+            rho_dense = _density_blocks(
+                dense_x, mask, dense_x, mask,
+                neighbor_index(grid, dev, bool(periodic)), params, kernel,
+                minimum_image(grid, dev, bool(periodic)),
+            )
     if density_renorm:
         rho_dense = torch.where(
             mask, _renormalize_density(rho_dense, params), rho_dense
@@ -340,25 +389,33 @@ def density_and_pressure(x, grid, params, kernel=WendlandC2,
     return rho, tait_pressure(rho, params)
 
 
-def init_density(state, grid, params, kernel=WendlandC2, rho=None,
-                 device="cuda"):
+def init_density(state, grid, params, kernel=WendlandC2, periodic=False,
+                 rho=None, device="cuda"):
     """Seed ``state.rho`` for continuity-density mode.
 
     By default the seed is the summation density of the configuration
-    (:func:`density_and_pressure`).  Pass ``rho`` (a scalar or ``[N]``
-    values) to override - e.g. ``rho0`` everywhere for a pre-relaxed
-    state, or the ``particles/density`` chunk when resuming from a
-    trajectory.
+    (:func:`density_and_pressure`; ``periodic`` as there).  Pass ``rho``
+    (a scalar or ``[N]`` values) to override - e.g. ``rho0`` everywhere
+    for a pre-relaxed state, or the ``particles/density`` chunk when
+    resuming from a trajectory.
     """
     if rho is None:
         rho, _ = density_and_pressure(
-            state.x, grid, params, kernel=kernel, device=device
+            state.x, grid, params, kernel=kernel, periodic=periodic,
+            device=device,
         )
     else:
         dev = _resolve_device(device)
         rho = torch.as_tensor(rho, dtype=torch.float32, device=dev)
         rho = rho.expand(state.x.shape[0]).contiguous()
     return state._replace(rho=rho)
+
+
+def _wrap_tuple(grid, periodic):
+    """The axes that wrap as the 3-tuple of bools the pair ops take as
+    ``wrap_axes`` (``None`` when nothing wraps)."""
+    wrap = tuple(map(bool, wrap_axes(grid, bool(periodic))))
+    return wrap if any(wrap) else None
 
 
 def make_step_fn(
@@ -390,27 +447,34 @@ def make_step_fn(
         use_kernels: run the density/acceleration pair passes through the
             hand-written CUDA kernels (:mod:`tpgsd_torch.sph.ops`).
             ``"auto"`` selects them on a CUDA ``device`` and the plain
-            pair passes elsewhere; on CUDA a configuration the kernels
-            do not take raises (see :func:`resolve_policy`).
+            pair passes elsewhere; on CUDA a capacity the kernels do not
+            take raises (see :func:`resolve_policy`).
         n_fixed: the first ``n_fixed`` particles are static boundary
             particles: SPH sources that never move.
+        periodic: wrap every axis with at least 3 cells instead of
+            reflecting at its walls (fewer cells would make a cell its
+            own neighbour through the seam; the collapsed z axis of a 2-D
+            scenario stays closed).  The kernels see the wrap as a ghost-
+            cell halo, the plain passes as a wrapped neighbour table and
+            minimum-image separations.
         density_renorm: floor summation density at ``rho0`` (the clipped
             Shepard renormalization).
         spill: two-tier cell layout: ``grid.capacity`` sizes the main
             tier and an equal spill tier holds the excess of denser
-            cells.  ``"auto"`` turns it on exactly when the kernels run.
-            ``spill=True`` without kernels runs the plain versions of
-            the spill ops (any device).
+            cells.  ``"auto"`` turns it on exactly when the kernels run
+            at a capacity up to 64; past it they run single-tier (the
+            wide kernels).  ``spill=True`` without kernels runs the plain
+            versions of the spill ops (any device).
         density_mode: ``"summation"`` re-sums density from positions
             every step.  ``"continuity"`` evolves ``state.rho`` (seed it
             with :func:`init_density`) by the continuity equation, whose
             pair terms fuse into the momentum pass: one neighbour sweep
-            per step instead of two, through the ``accel_drho_pairs``
-            kernel on the card.  It excludes ``density_renorm``.
+            per step instead of two, through the ``accel_drho`` kernels
+            on the card.  It excludes ``density_renorm``.
         delta_sph: delta-SPH density-diffusion strength (continuity mode
             only; 0.1 is the standard setting, 0 = off).
-        periodic, xsph, surface_tension, sharding: not ported yet; each
-            raises ``NotImplementedError`` naming its ROADMAP item.
+        xsph, surface_tension, sharding: not ported yet; each raises
+            ``NotImplementedError`` naming its ROADMAP item.
         device: the device of the states the step takes (the card unless
             the caller asks for ``"cpu"``).
 
@@ -419,8 +483,6 @@ def make_step_fn(
     """
     from . import ops  # ops imports this module's plain pair passes
 
-    if periodic:
-        raise _not_ported("periodic", 5)
     if xsph:
         raise _not_ported("xsph", 5)
     if surface_tension:
@@ -455,6 +517,9 @@ def make_step_fn(
     hi = torch.from_numpy(hi_np).to(dev)
     gravity = torch.from_numpy(np.asarray(params.gravity, np.float32)).to(dev)
     dt = params.dt
+    periodic = bool(periodic)
+    wrap = _wrap_tuple(grid, periodic)  # the ops' ghost-halo axes
+    wrapped_axes = torch.from_numpy(wrap_axes(grid, periodic)).to(dev)
 
     def _finish(x, v, out, overflow, rho_cur=None):
         """Integrate/boundary tail: ``out`` is the per-particle gathered
@@ -474,13 +539,20 @@ def make_step_fn(
         v_new = (v + dt * acc) * params.velocity_damping
         x_new = x + dt * v_new
 
-        # reflective walls with damping: reflect, then clip
+        # reflective walls with damping (reflect, then clip), except the
+        # modular wrap on periodic axes
         under = x_new < lo
         over = x_new > hi
         reflected = torch.where(under, 2.0 * lo - x_new, x_new)
         reflected = torch.where(over, 2.0 * hi - reflected, reflected)
-        x_new = torch.clamp(reflected, lo, hi)
+        reflected = torch.clamp(reflected, lo, hi)
         bounce = under | over
+        if periodic:
+            wrapped = lo + torch.remainder(x_new - lo, hi - lo)
+            x_new = torch.where(wrapped_axes, wrapped, reflected)
+            bounce = bounce & ~wrapped_axes
+        else:
+            x_new = reflected
         v_new = torch.where(bounce, -params.wall_damping * v_new, v_new)
 
         if n_fixed > 0:
@@ -554,6 +626,7 @@ def make_step_fn(
                 soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
                 soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
                 grid, params, kernel=kernel, delta_sph=delta_sph,
+                wrap_axes=wrap,
             )
             out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
             return _finish(x, v, out, cells.overflow, rho_cur=rho)
@@ -575,14 +648,14 @@ def make_step_fn(
             soa_b = scatter_to_cells_soa(xv, cells, grid, slot_base=k, capacity=k)
             rho_a, rho_b = density_spill(
                 soa_a[:3], cells.mask, soa_b[:3], sp.mask, grid, params,
-                kernel=kernel,
+                kernel=kernel, wrap_axes=wrap,
             )
             rho_a, p_a = finish_rho(rho_a, cells.mask)
             rho_b, p_b = finish_rho(rho_b, sp.mask)
             acc_a, acc_b = accel_spill(
                 soa_a[:3], soa_a[3:], rho_a, p_a, cells.mask,
                 soa_b[:3], soa_b[3:], rho_b, p_b, sp.mask,
-                grid, params, kernel=kernel,
+                grid, params, kernel=kernel, wrap_axes=wrap,
             )
             out = to_particles(
                 torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3]
@@ -595,7 +668,46 @@ def make_step_fn(
         step_spill.resolved = resolved
         return step_spill
 
-    nbr = neighbor_index(grid, dev)
+    # single tier: the kernels (the self role up to K = 64, the wide
+    # kernels past it) take the ghost halo, the plain pair passes the
+    # wrapped table and minimum image
+    if use_kernels:
+        def density(dense_x, m):
+            return ops.density(
+                dense_x, m, grid, params, kernel=kernel, wrap_axes=wrap
+            )
+
+        def accel(dense_x, dense_v, rho, p, m):
+            return ops.accel(
+                dense_x, dense_v, rho, p, m, grid, params, kernel=kernel,
+                wrap_axes=wrap,
+            )
+
+        def accel_drho(dense_x, dense_v, rho, p, m):
+            return ops.accel_drho(
+                dense_x, dense_v, rho, p, m, grid, params, kernel=kernel,
+                delta_sph=delta_sph, wrap_axes=wrap,
+            )
+    else:
+        nbr = neighbor_index(grid, dev, periodic)
+        mimage = minimum_image(grid, dev, periodic)
+
+        def density(dense_x, m):
+            return _density_blocks(
+                dense_x, m, dense_x, m, nbr, params, kernel, mimage
+            )
+
+        def accel(dense_x, dense_v, rho, p, m):
+            return _accel_blocks(
+                dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
+                nbr, params, kernel, mimage,
+            )
+
+        def accel_drho(dense_x, dense_v, rho, p, m):
+            return _accel_drho_blocks(
+                dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
+                nbr, params, kernel, delta_sph, mimage,
+            )
 
     if continuity:
 
@@ -607,13 +719,9 @@ def make_step_fn(
             xvr = scatter_to_cells_soa(
                 torch.cat([x, v, rho[:, None]], dim=-1), cells, grid
             )
-            dense_x, dense_v = xvr[:3], xvr[3:6]
             m = cells.mask[:c]
             rho_d, p_d = finish_rho(xvr[6], cells.mask)
-            out4 = _accel_drho_blocks(
-                dense_x, dense_v, rho_d, p_d, m, dense_x, dense_v, rho_d, p_d,
-                m, nbr, params, kernel, delta_sph,
-            )
+            out4 = accel_drho(xvr[:3], xvr[3:6], rho_d, p_d, m)
             out = gather_bundle(out4.permute(1, 2, 0), cells)
             return _finish(x, v, out, cells.overflow, rho_cur=rho)
 
@@ -628,12 +736,8 @@ def make_step_fn(
         xv = scatter_to_cells_soa(torch.cat([x, v], dim=-1), cells, grid)
         dense_x, dense_v = xv[:3], xv[3:]
         m = cells.mask[:c]
-        rho = _density_blocks(dense_x, m, dense_x, m, nbr, params, kernel)
-        rho, p = finish_rho(rho, cells.mask)
-        acc = _accel_blocks(
-            dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
-            nbr, params, kernel,
-        )
+        rho, p = finish_rho(density(dense_x, m), cells.mask)
+        acc = accel(dense_x, dense_v, rho, p, m)
         out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
         return _finish(x, v, out, cells.overflow)
 
