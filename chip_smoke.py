@@ -6,16 +6,19 @@ Builds the CUDA pair kernels from ``tpgsd_torch/csrc`` (nvcc, first use),
 holds each of the nine kernel roles against its plain PyTorch version on
 the 1M-particle dam break (the two-tier roles at K = 24 and 32, the wide
 single-tier roles at K = 128, and at 100k particles K = 96, 256 and an
-arbitrary mask) and the two-tier roles on the ghost tiers of the 1M
-periodic still box and the 2-D Taylor-Green vortex, drives the port's main paths for 20 steps each with the
+arbitrary mask) and on the ghost tiers of the 1M periodic still box (the
+two-tier roles at its own K, the wide roles at K = 128) and the 2-D
+Taylor-Green vortex, drives the port's main paths for 20 steps each with the
 async GSD dump through the port's own writer (the flagship spill step and
 the single-tier K = 128 step, in summation and in continuity density
 mode), checks the written files and the kernel launch counts, runs the
 periodic workloads (a 1M still box on both layouts, a 2-D Taylor-Green
 vortex), compares one step of each kernel path with its plain path, times
-steps and kernels beside each kernel's roofline bound (the two-tier
-kernels with their tile size T), and profiles the 1M steps (torch.profiler: the device time per layer and the device's idle
-share, from one trace each).
+steps and kernels beside each kernel's roofline bound (the tile kernels
+with their tile size T and shared memory; the momentum tile kernel at K =
+128 against K = 32 on the same particles), and profiles the 1M steps
+(torch.profiler: the device time per layer and the device's idle share,
+from one trace each).
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -441,8 +444,10 @@ def phase_wide_kernels_vs_plain(dev, card):
     """Phase 3 (wide): the three wide roles against their plain versions
     on the 1M dam break at K = 128 (both smoothing kernels, delta-SPH on
     and off; each plain pass runs once and is timed), then at 100k
-    particles K = 96 and 256 and, at K = 128, an arbitrary mask.  Returns
-    the per-role errors, the 1M tier and the plain passes' times."""
+    particles K = 96 and 256 and, at K = 128, an arbitrary mask, then on
+    the 1M still box's ghost grid (:func:`phase_periodic_wide_roles`).
+    Returns the per-role errors, the 1M tier and the plain passes'
+    times."""
     errs = {key: {"abs": 0.0, "scaled": 0.0, "planes": {}}
             for key in ("density_wide", "accel_wide", "accel_drho_wide")}
     plain_ms = {}
@@ -491,6 +496,7 @@ def phase_wide_kernels_vs_plain(dev, card):
         print("%s: %d live slots of %d, %.1f%% of the cells past 32 slots; "
               "held" % (tag, int(m.sum()), m.numel(),
                         100.0 * float(m[:, 32:].any(dim=1).float().mean())))
+    phase_periodic_wide_roles(dev, errs)
     for key, rec in errs.items():
         print("phase 3 (wide): %s max abs err %s, largest scaled by its "
               "plane's max %.3e; plain pass %.1f ms [%s]"
@@ -498,6 +504,34 @@ def phase_wide_kernels_vs_plain(dev, card):
                                 sorted(rec["planes"].items())),
                  rec["scaled"], plain_ms[key], card))
     return errs, tier1m, plain_ms
+
+
+def phase_periodic_wide_roles(dev, errs):
+    """Phase 3 (wide, periodic): each single-tier role past 64 slots on
+    the ghost tier a periodic wide step hands the kernels: the 1M still
+    box at K = 128, jittered, with N(0, 1) velocities; updates the wide
+    roles' records ``errs``."""
+    sc = still_box(n_side=N_BOX_1M, capacity=K_WIDE, device=dev)
+    s = periodic_roles_inputs(sc, sc.grid, dev)
+    if s["spill"]:
+        raise AssertionError("the K=128 still box spilled")
+    g, t, params = s["grid"], s["a"], sc.params
+    tag = "still box ghost grid %s K=%d" % ("x".join(map(str, g.dims)),
+                                            g.capacity)
+    hold_planes(errs["density_wide"], tag + " density",
+                ops.density_pairs(t[0], t[4], t[0], t[4], g, params),
+                ops.density_pairs_plain(t[0], t[4], t[0], t[4], g, params),
+                t[4], 1e-5, 1e-6)
+    hold_planes(errs["accel_wide"], tag + " accel",
+                ops.accel_pairs(*t, *t, g, params),
+                ops.accel_pairs_plain(*t, *t, g, params), t[4], 1e-4, 1e-5)
+    hold_planes(errs["accel_drho_wide"], tag + " accel_drho",
+                ops.accel_drho_pairs(*t, *t, g, params, delta_sph=DELTA_SPH),
+                ops.accel_drho_pairs_plain(*t, *t, g, params,
+                                           delta_sph=DELTA_SPH),
+                t[4], 1e-4, 1e-5)
+    print("phase 3 (wide, periodic): %s, N=%d (%s): every wide role held"
+          % (tag, sc.n, tile_note("accel", g, params)))
 
 
 #: the main paths: chunks of a frame and launches per step, by layout
@@ -873,12 +907,24 @@ def roofline(family, cen, nbr_tier, grid, params, kernel, n_out_planes):
     return 1e3 * max(t_bytes, t_flop), by, n_bytes, flop
 
 
+def widened(tier, k, params):
+    """Tier ``(x, v, rho, p, mask)`` with its slots padded to ``k`` by
+    dead ones (zero fields, ``rho0``, mask off), as the step fills them."""
+    def pad(t, fill):
+        extra = t.new_full(t.shape[:-1] + (k - t.shape[-1],), fill)
+        return torch.cat([t, extra], dim=-1).contiguous()
+
+    x, v, rho, p, m = tier
+    return (pad(x, 0.0), pad(v, 0.0), pad(rho, params.rho0), pad(p, 0.0),
+            pad(m, False))
+
+
 def pair_passes(a, b, grid, params):
     """``family -> (output planes, kernel(cen, nbr, role, tile=None),
     plain(cen, nbr))`` for tiers ``(x, v, rho, p, mask)``; the kernels are
     launched as the two-tier entry points launch them, on tiers whose
     pressure plane is folded beforehand (``tile`` forces the cells per CTA
-    of the two-tier kernels)."""
+    of the tile kernels)."""
     folded = {id(t): t[:3] + (ops.pressure_plane(t[2], t[3], params),) + t[4:]
               for t in (a, b)}
 
@@ -905,8 +951,8 @@ def pair_passes(a, b, grid, params):
 
 
 def tile_note(family, grid, params):
-    """``T=.., dynamic shared memory .. B``: the tile a two-tier launch
-    of ``family`` runs on ``grid`` and the shared memory it asks for."""
+    """``T=.., dynamic shared memory .. B``: the tile a tile launch of
+    ``family`` runs on ``grid`` and the shared memory it asks for."""
     return "T=%d, dynamic shared memory %d B" % (
         ops.tile_cells(grid, params),
         ops.tile_shared_bytes(family, grid, params))
@@ -1040,35 +1086,61 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
             family, tier, tier, grid_w, params_w, WendlandC2, n_out)
         times[key] = {"ms": kms, "plain_ms": wide["plain_ms"][key],
                       "bound_ms": bound_ms, "bound_by": by}
-        print("phase 6: %s at N=%d, K=%d (single tier): kernel %.4f ms, plain "
-              "%.4f ms, bound %.4f ms by %s (%.4g bytes, %.4g flop; kernel at "
-              "%.1f%% of the bound's rate; %.2f times the K=32 self role) [%s]"
-              % (key, N_1M_PARTICLES, grid_w.capacity, kms,
+        note = ("one warp a cell" if family == "density"
+                else tile_note(family, grid_w, params_w))
+        print("phase 6: %s at N=%d, K=%d (single tier; %s): kernel %.4f ms, "
+              "plain %.4f ms, bound %.4f ms by %s (%.4g bytes, %.4g flop; "
+              "kernel at %.1f%% of the bound's rate; %.2f times the K=32 self "
+              "role) [%s]"
+              % (key, N_1M_PARTICLES, grid_w.capacity, note, kms,
                  wide["plain_ms"][key], bound_ms, by, n_bytes, flop,
                  100.0 * bound_ms / kms, kms / times[family + "_self"]["ms"],
                  card))
 
-    # would the wide design serve K <= 64?  The same K = 32 self-role
-    # inputs through the wide kernels (the wrappers send a capacity past
-    # ops.MAX_CAPACITY there), held to the two-tier kernels' results
+    # would the wide density design serve K <= 64?  The same K = 32
+    # self-role inputs through the wide density kernel (the wrapper sends a
+    # capacity past ops.MAX_CAPACITY there), held to density_pairs
     grid, a = inputs32["grid"], inputs32["a"]
     passes = pair_passes(a, a, grid, params)
-    narrow = {f: kern(a, a, "self") for f, (_, kern, _) in passes.items()}
+    _, kern, _ = passes["density"]
+    narrow = kern(a, a, "self")
     keep, ops.MAX_CAPACITY = ops.MAX_CAPACITY, 0
     try:
-        for family, (_, kern, _) in passes.items():
-            got = kern(a, a, "self")
-            rtol, atol = (1e-5, 1e-6) if family == "density" else (1e-4, 1e-5)
-            hold_planes({"abs": 0.0, "scaled": 0.0, "planes": {}},
-                        "wide %s at K=32" % family, got, narrow[family], a[4],
-                        rtol, atol)
-            kms = cuda_ms(lambda: kern(a, a, "self"), 20, 3)
-            print("phase 6: the wide %s kernel on the K=%d self-role inputs: "
-                  "%.4f ms against %.4f ms of %s_self [%s]"
-                  % (family, grid.capacity, kms,
-                     times[family + "_self"]["ms"], family, card))
+        hold_planes({"abs": 0.0, "scaled": 0.0, "planes": {}},
+                    "wide density at K=32", kern(a, a, "self"), narrow, a[4],
+                    1e-5, 1e-6)
+        kms = cuda_ms(lambda: kern(a, a, "self"), 20, 3)
     finally:
         ops.MAX_CAPACITY = keep
+    print("phase 6: the wide density kernel on the K=%d self-role inputs: "
+          "%.4f ms against %.4f ms of density_self [%s]"
+          % (grid.capacity, kms, times["density_self"]["ms"], card))
+
+    # the momentum tile kernel past 64 slots: the same particles in the
+    # first 32 of K_WIDE slots (the spill tier is empty at K = 32, so the
+    # K = 32 tier holds every particle), held to the K = 32 launch
+    wide_a = widened(a, K_WIDE, params)
+    grid_k = grid._replace(capacity=K_WIDE)
+    passes_k = pair_passes(wide_a, wide_a, grid_k, params)
+    for family in ("accel", "accel_drho"):
+        got = passes_k[family][1](wide_a, wide_a, "self")
+        want = passes[family][1](a, a, "self")
+        if bool(got[..., 32:].any()):
+            raise AssertionError("%s at K=%d: nonzero dead slot" % (family,
+                                                                   K_WIDE))
+        hold_planes({"abs": 0.0, "scaled": 0.0, "planes": {}},
+                    "%s K=%d slots [:32] against K=32" % (family, K_WIDE),
+                    got[..., :32].contiguous(), want, a[4], 1e-4, 1e-5)
+        kms = cuda_ms(lambda: passes_k[family][1](wide_a, wide_a, "self"),
+                      20, 3)
+        print("phase 6: %s_wide on the K=32 self-role particles in %d slots "
+              "(%s): %.4f ms against %.4f ms of %s_self at K=32 (%.3f times; "
+              "largest difference %.3g) [%s]"
+              % (family, K_WIDE, tile_note(family, grid_k, params), kms,
+                 times[family + "_self"]["ms"], family,
+                 kms / times[family + "_self"]["ms"],
+                 float((got[..., :32] - want).abs().max()), card))
+    del wide_a
 
     # the wide and the periodic steps
     for mode in PATHS_MODES:

@@ -1,8 +1,10 @@
 """The port's CUDA pair kernels on the card: each against its plain
-version (the two-tier roles ``density_pairs_kernel`` and
-``accel_pairs_kernel<kDrho>`` on the edges of their tiles, the wide
-single-tier roles at K = 96, 128 and 256 with prefix and arbitrary masks,
-the ghost-halo route against the wrapped-table route), the launch counts,
+version (the tile kernels ``density_pairs_kernel`` and
+``accel_pairs_kernel<kDrho>`` on the edges of their tiles, up to 64 slots
+and, for momentum, past them up to K = 1024 with ranges staged in pieces,
+the wide single-tier roles at K = 96, 128 and 256 with prefix and
+arbitrary masks, the ghost-halo route against the wrapped-table route),
+the launch counts,
 the operand checks, and the failed-build rule.  Every test here needs an NVIDIA GPU and skips without one; the
 file imports nothing of JAX, so it runs on a machine that has only the
 port's dependencies:
@@ -385,18 +387,31 @@ def test_tile_kernels_match_plain(cuda, case):
 @pytest.mark.cuda
 def test_tile_shared_bytes(cuda):
     """A tile launch stages each particle of its T + 2 cells as one float4
-    (density: x, y, z) or two (momentum: x, v, rho, pt), then a centre
-    list of T K int16; a forced tile on a wide grid raises."""
+    (density: x, y, z) or two (momentum: x, v, rho, pt), a budget of
+    (T + 2) min(K, 64) live particles: past 64 slots the momentum tiles
+    ask for what they ask for at K = 64, up to K = 1024; density has no
+    tile launch there."""
     db = dam_break(n_side=8, capacity=32, device="cpu")
     grid, params = db.grid, db.params
     for family, staged in (("density", 16), ("accel", 32), ("accel_drho", 32)):
         assert ops.tile_shared_bytes(family, grid, params, 7) == (
-            staged * 9 * 32 + 2 * 7 * 32)
+            staged * 9 * 32)
     t = ops.tile_cells(grid, params)
     assert ops.tile_shared_bytes("density", grid, params) == (
-        16 * (t + 2) * 32 + 2 * t * 32)
-    with pytest.raises(ValueError, match="tile applies to the two-tier"):
+        16 * (t + 2) * 32)
+    for family in ("accel", "accel_drho"):
+        for tile in (1, 7, 16):
+            at = [ops.tile_shared_bytes(family, grid._replace(capacity=k),
+                                        params, tile)
+                  for k in (64, 96, 128, ops.MAX_WIDE_CAPACITY)]
+            assert at == [32 * (tile + 2) * 64] * 4
+    assert ops.tile_shared_bytes(
+        "accel", grid._replace(capacity=ops.MAX_WIDE_CAPACITY), params,
+        ops.MAX_TILE) <= 48 * 1024
+    with pytest.raises(ValueError, match="tile applies to the density"):
         ops.tile_shared_bytes("density", grid._replace(capacity=96), params, 7)
+    with pytest.raises(ValueError, match="no density tile launch"):
+        ops.tile_shared_bytes("density", grid._replace(capacity=96), params)
 
 
 # --------------------------------------------------------------------------
@@ -409,19 +424,21 @@ def _finish(rho, m, params):
     return rho, torch.where(m, tait_pressure(rho, params), 0.0)
 
 
-def _cloud_tier(dev, capacity, arbitrary, seed=7):
-    """One tier ``(x, v, rho, p, mask)`` of a random cloud with a dense
-    corner (cells there hold about 150 particles, the others about 6, so
-    wide cells have several live groups of 32 slots and most have one),
-    with N(0, 1) velocities.  ``arbitrary`` permutes the slots of every
+def _cloud_tier(dev, capacity, arbitrary, seed=7, n_dense=800, side=0.22,
+                h=0.06):
+    """One tier ``(x, v, rho, p, mask)`` of a random cloud of 3800
+    particles in the unit box with a dense corner (by default ``n_dense``
+    = 800 of them in a cube of side 0.22, so that cells there hold about
+    150 particles, the others about 6, and wide cells have several live
+    groups of 32 slots and most have one), with N(0, 1) velocities, on
+    cells of side ``2 h``.  ``arbitrary`` permutes the slots of every
     cell, which turns the prefix masks into arbitrary ones."""
     rng = numpy.random.default_rng(seed)
     x = rng.uniform(0.02, 0.98, (3800, 3))
-    x[:800] = 0.03 + 0.22 * rng.uniform(0, 1, (800, 3))
+    x[:n_dense] = 0.03 + side * rng.uniform(0, 1, (n_dense, 3))
     v = rng.standard_normal(x.shape)
     xv = torch.from_numpy(numpy.concatenate([x, v], 1).astype(numpy.float32))
     xv = xv.to(dev)
-    h = 0.06
     grid = make_grid((0, 0, 0), (1, 1, 1), 2 * h, capacity)
     params = SPHParams(mass=1000.0 / 3800, h=h, dt=1e-4, rho0=1000.0)
     cells = build_cells(xv[:, :3].contiguous(), grid)
@@ -474,6 +491,105 @@ def test_wide_kernels_match_plain(cuda, capacity, arbitrary):
     assert _launched() == {
         "density_wide": 2, "accel_wide": 2, "accel_drho_wide": 4
     }
+
+
+def _most_live_in_a_range(live, dims, tile):
+    """The largest live count of the id ranges a launch at ``tile`` cells
+    per CTA stages: T + 2 consecutive cell ids per (dx, dy) offset of
+    each tile, clipped to the grid (host side, from the masks)."""
+    nx, ny, nz = dims
+    c = nx * ny * nz
+    before = numpy.concatenate([[0], numpy.cumsum(live.sum(axis=1))])
+    most = 0
+    for c0 in range(0, c, tile):
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                lo = c0 + (dx * ny + dy) * nz - 1
+                a, b = min(max(lo, 0), c), min(max(lo + tile + 2, 0), c)
+                most = max(most, int(before[b] - before[a]))
+    return most
+
+
+def _wide_tile_case(dev, case):
+    """``(grid, params, tier, tiles)`` of one edge of the momentum tile
+    kernel past 64 slots: ``tier`` is ``(x, v, rho, p, mask)``, ``tiles``
+    the cells per CTA to run (``None``: the wrapper's rule)."""
+    if case == "k1024":  # 4 x 4 x 4 cells, about 800 particles in one
+        grid, params, tier = _cloud_tier(dev, ops.MAX_WIDE_CAPACITY, True,
+                                         seed=9, h=0.12)
+        return grid, params, tier, (None, 1, 16)
+    if case.startswith("dense"):  # cells of up to about 200 particles
+        grid, params, tier = _cloud_tier(dev, 256, case == "dense", seed=10,
+                                         n_dense=3000, side=0.30)
+        return grid, params, tier, (1, 7, 16)
+    if case == "2d":
+        sc = taylor_green(n_side=24, capacity=72, device="cpu")
+        assert sc.grid.dims[2] == 1
+    else:  # "ragged": a dam break of 144 cells at K = 96
+        sc = dam_break(n_side=10, capacity=96, device="cpu")
+    grid, params = sc.grid, sc.params
+    xv = torch.cat([sc.state.x, sc.state.v], 1).to(dev)
+    if case == "ragged":  # the dam break starts at rest
+        rng = numpy.random.default_rng(12)
+        xv[:, 3:] = torch.from_numpy(
+            rng.standard_normal((sc.n, 3)).astype(numpy.float32)).to(dev)
+    cells = build_cells(xv[:, :3].contiguous(), grid)
+    assert int(cells.overflow) == 0
+    soa = scatter_to_cells_soa(xv, cells, grid)
+    m = cells.mask[: grid.n_cells]
+    rho = ops.density_plain(soa[:3], m, grid, params)
+    tier = (soa[:3], soa[3:], *_finish(rho, m, params), m)
+    assert grid.n_cells % 7 and grid.n_cells % 11
+    return grid, params, tier, (None, 1, 7, 11, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ["k1024", "dense", "dense_prefix", "2d", "ragged"])
+def test_momentum_tiles_past_64_slots_match_plain(cuda, case):
+    """``accel_pairs`` and ``accel_drho_pairs`` past 64 slots (the
+    momentum tile kernel that serves ``accel_wide`` and
+    ``accel_drho_wide``) against their plain versions at forced tiles: K =
+    1024 on a small grid; a cloud whose densest id ranges hold more than
+    twice the staging budget of a T = 1 tile (so they are staged in three
+    or more pieces) and whose densest cells more than 128 live centres (a
+    second round), with arbitrary and prefix masks; a 2-D grid; a cell
+    count that is not a multiple of T.  Both smoothing kernels, delta-SPH
+    0 and 0.1; every output plane scaled by its max; dead centre slots
+    are exactly 0."""
+    grid, params, tier, tiles = _wide_tile_case(cuda, case)
+    m = tier[4]
+    live = m.cpu().numpy()
+    assert grid.capacity > ops.MAX_CAPACITY
+    if case in ("k1024", "dense", "dense_prefix"):
+        assert int(live.sum()) == 3800, "no particle may overflow"
+        # live particles a T = 1 tile stages at once (32 B each)
+        cap = ops.tile_shared_bytes("accel", grid, params, 1) // 32
+        assert _most_live_in_a_range(live, grid.dims, 1) > 2 * cap
+        assert int(live.sum(axis=1).max()) > 128
+    if case == "k1024":
+        assert live[:, ops.MAX_WIDE_CAPACITY // 2:].any()
+    if case == "dense_prefix":
+        assert not (live[:, 1:] & ~live[:, :-1]).any(), "prefix masks"
+    ops.reset_launch_counts()
+    for kernel in (port_kernels.WendlandC2, port_kernels.CubicSpline):
+        for fn, plain, kw in (
+            (ops.accel_pairs, ops.accel_pairs_plain, {}),
+            (ops.accel_drho_pairs, ops.accel_drho_pairs_plain,
+             {"delta_sph": 0.0}),
+            (ops.accel_drho_pairs, ops.accel_drho_pairs_plain,
+             {"delta_sph": 0.1}),
+        ):
+            want = plain(*tier, *tier, grid, params, kernel=kernel, **kw)
+            for tile in tiles:
+                got = fn(*tier, *tier, grid, params, kernel=kernel, tile=tile,
+                         **kw)
+                assert not bool(got[:, ~m].any()), "dead centre slots"
+                for col in range(got.shape[0]):
+                    _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
+    torch.cuda.synchronize()
+    assert _launched() == {"accel_wide": 2 * len(tiles),
+                           "accel_drho_wide": 4 * len(tiles)}
 
 
 def _periodic_box(dev, seed=11):

@@ -424,12 +424,25 @@ def test_forced_tile_is_range_checked():
 
     db = dam_break(n_side=6, capacity=24, device="cpu")
     grid, params = db.grid, db.params
-    assert ops._tile(grid, params, None) == ops.tile_cells(grid, params)
-    assert ops._tile(grid, params, 16) == 16
+    for family in ("density", "accel", "accel_drho"):
+        assert ops._tile(grid, params, None, family) == ops.tile_cells(
+            grid, params)
+        assert ops._tile(grid, params, 16, family) == 16
     wide = grid._replace(capacity=96)
-    assert ops._tile(wide, params, None) is None
-    with pytest.raises(ValueError, match="tile applies to the two-tier"):
-        ops._tile(wide, params, 16)
+    # past 64 slots the momentum families take tiles at any capacity, the
+    # density pass is the wide density kernel's
+    for family in ("accel", "accel_drho"):
+        assert ops._tile(wide, params, None, family) == ops.tile_cells(
+            wide, params)
+        assert ops._tile(wide, params, 16, family) == 16
+        for capacity in (64, 96, ops.MAX_WIDE_CAPACITY):
+            for bad in (0, ops.MAX_TILE + 1):
+                with pytest.raises(ValueError, match="tile must be 1 .. 16"):
+                    ops._tile(grid._replace(capacity=capacity), params, bad,
+                              family)
+    assert ops._tile(wide, params, None, "density") is None
+    with pytest.raises(ValueError, match="tile applies to the density"):
+        ops._tile(wide, params, 16, "density")
     for bad in (0, ops.MAX_TILE + 1):
         with pytest.raises(ValueError, match="tile must be 1 .. 16"):
-            ops._tile(grid, params, bad)
+            ops._tile(grid, params, bad, "density")

@@ -369,6 +369,38 @@ def test_continuity_step_matches_jnp_path(spill, delta_sph, n_fixed):
         )[:n_fixed]).any()
 
 
+def test_continuity_run_past_64_slots_matches_jnp_path():
+    """Twenty plain continuity steps on the single tier at K = 72 (the
+    layout of the momentum tile kernels past 64 slots), delta-SPH 0.1,
+    against the jitted JAX step on the jnp path: positions and the
+    carried density are held at step 10 and after the last step, so a
+    drift that grows over a run shows."""
+    db, x0, v0, grid, params = _continuity_case(capacity=72)
+    step_ref = jax.jit(ref_make_step_fn(
+        db.grid, db.params, use_pallas=False, density_mode="continuity",
+        delta_sph=0.1,
+    ))
+    step = make_step_fn(grid, params, spill=False, density_mode="continuity",
+                        delta_sph=0.1, device="cpu")
+    state_r = ref_init_density(RefState(x=x0, v=v0), db.grid, db.params)
+    state = state_from_numpy(x0, v0, "cpu", rho=numpy.asarray(state_r.rho))
+    for i in range(1, 21):
+        state_r, (_, _, ov_r) = step_ref(state_r)
+        state, (_, _, ov) = step(state)
+        assert int(ov) == int(ov_r)
+        if i in (10, 20):
+            numpy.testing.assert_allclose(
+                state.x.numpy(), numpy.asarray(state_r.x), rtol=1e-5,
+                atol=1e-6, err_msg="positions at step %d" % i)
+            numpy.testing.assert_allclose(
+                state.rho.numpy(), numpy.asarray(state_r.rho), rtol=1e-4,
+                atol=1e-2, err_msg="carried density at step %d" % i)
+    # the run moved the particles and the density
+    assert float(numpy.abs(state.x.numpy() - x0).max()) > 1e-4
+    assert float(numpy.abs(state.rho.numpy() - ref_init_density(
+        RefState(x=x0, v=v0), db.grid, db.params).rho).max()) > 1.0
+
+
 def test_first_continuity_step_moves_like_the_summation_step():
     """Seeded with the summation density, the first continuity step sees
     the same density and pressure as the summation step, so positions

@@ -28,7 +28,9 @@ def test_tool_names_exist_in_chip_smoke():
         if isinstance(node, ast.Attribute)
         and isinstance(node.value, ast.Name) and node.value.id == "cs"
     }
-    assert {"pair_passes", "roofline", "spill_inputs"} <= used
+    assert {"pair_passes", "roofline", "spill_inputs", "single_tier_inputs",
+            "finish_density", "configuration", "step_ms",
+            "phase_profile"} <= used
     cs = _chip_smoke()
     assert not [name for name in sorted(used) if not hasattr(cs, name)]
 

@@ -87,23 +87,22 @@ def _declare(lib):
         f, f, f, f, f, f,  # inv2h, invh2, mfold, h, sigma, supp2
         p,  # stream
     ]
-    accel_wide = [
+    accel_pairs = [
         p, p, p, p, p,  # xc, vc, rhoc, ptc, mc
         p, p, p, p, p,  # xn, vn, rhon, ptn, mn
         p, i,  # out, n_out (3: acc; 4: acc and drho/dt)
-        i, i, i, i, i,  # nx, ny, nz, k, kind
+        i, i, i, i, i, i,  # nx, ny, nz, k, tile, kind
         f, f, f, f, f, f,  # inv2h, h, sigma, h2eps, cv, supp2
         f, f, f, f,  # adrho, ddfold, eta2, rho_floor (n_out = 4)
         p,  # stream
     ]
-    # the two-tier entries take the same arguments plus the tile T after k
+    # the two-tier density entry takes the same arguments plus the tile T
+    # after k
     density_pairs = density_wide[:9] + [i] + density_wide[9:]
-    accel_pairs = accel_wide[:16] + [i] + accel_wide[16:]
     for fn, argtypes in (
         (lib.tpgsd_density_pairs, density_pairs),
         (lib.tpgsd_density_wide, density_wide),
         (lib.tpgsd_accel_pairs, accel_pairs),
-        (lib.tpgsd_accel_wide, accel_wide),
     ):
         fn.argtypes = argtypes
         fn.restype = i

@@ -10,13 +10,12 @@
 //                       _accel_drho_kernel_packed_cross
 // Past 64 slots (the single tier at a worst-cell-proof capacity):
 //   density_wide     <- _density_kernel
-//   accel_wide       <- _accel_kernel
-//   accel_drho_wide  <- _accel_drho_kernel
-// accel_pairs and accel_drho_pairs are the two instances of one template
-// (accel_pairs_kernel<kDrho>): the second adds the drho/dt sum; so
-// are accel_wide and accel_drho_wide (accel_wide_kernel<kDrho>).  Every
-// kernel evaluates a pair through the same two functions (density_pair,
-// momentum_pair).
+//   accel_wide       <- _accel_kernel       (accel_pairs_kernel<false, true>)
+//   accel_drho_wide  <- _accel_drho_kernel  (accel_pairs_kernel<true, true>)
+// The momentum roles are the instances of one template,
+// accel_pairs_kernel<kDrho, kWide>: kDrho adds the drho/dt sum, kWide
+// takes capacities past 64 slots.  Every kernel evaluates a pair through
+// the same two functions (density_pair, momentum_pair).
 // A self pass and a cross pass differ only in which tier holds the centres
 // and which holds the neighbours, so one kernel serves both: the caller
 // passes the centre tier and the neighbour tier.
@@ -26,14 +25,14 @@
 // validity comes from the cell's (ix, iy, iz), so no neighbour table is
 // read.
 //
-// What bounds the two-tier kernels (K <= 64) on the H100: in the self
-// roles the pair arithmetic (about 19 f32 operations a pair within the
-// support in density_pairs, 38 in accel_pairs, 48 in accel_drho_pairs,
-// each with one sqrt and the momentum ones with an approximate divide),
-// in the cross roles against a sparse or empty tier the bytes of the two
-// masks and the zeros written.  Tensor cores do not apply: every pair term
-// passes through a branch on the support radius, a sqrt and a divide, and
-// no product of two matrices appears.
+// What bounds the tile kernels on the H100: in the self roles the pair
+// arithmetic (about 19 f32 operations a pair within the support in
+// density_pairs, 38 in accel_pairs, 48 in accel_drho_pairs, each with one
+// sqrt and the momentum ones with an approximate divide), in the cross
+// roles against a sparse or empty tier the bytes of the two masks and the
+// zeros written.  Tensor cores do not apply: every pair term passes
+// through a branch on the support radius, a sqrt and a divide, and no
+// product of two matrices appears.
 //
 // Their design is a tile of live centres.  One CTA of 128 threads owns T
 // consecutive cell ids [c0, c0 + T) (T <= 16, chosen by the caller; the
@@ -43,7 +42,11 @@
 //     ones.  Thread t owns live centre t and keeps its fields and sums in
 //     registers, so every lane that evaluates a pair holds a centre, not
 //     only the live slots of one cell; a tile past 128 live centres takes
-//     further rounds of 128, so registers do not grow with K.
+//     further rounds of 128.  The list holds 1024 centres, every centre
+//     slot of a tile up to 64 slots a cell; past them (kWide) it is a
+//     ring, and before each round the CTA ranks further chunks of 128
+//     slots while one fits, so neither the list nor the registers grow
+//     with K.
 //  2. For each of the 9 (dx, dy) offsets, the cells any centre of the tile
 //     can need form the id range [c0 + off - 1, c0 + off + T] (off =
 //     dx ny nz + dy nz), clipped to [0, C): T + 2 cells, contiguous in
@@ -53,38 +56,42 @@
 //     cell and slot order as float4s (one for density, two for momentum:
 //     a neighbour is one or two vector loads), with a start table indexed
 //     by the position in the range; each staged cell serves every centre
-//     of the tile that needs it.
+//     of the tile that needs it.  The staging buffer holds (T + 2)
+//     min(K, 64) particles, a budget of live slots, not of slots: past 64
+//     slots a cell list sized for its worst cell (K = 128 where a 2h cell
+//     holds 18-30 particles) is mostly dead, and a range of T + 2 such
+//     cells holds far fewer live particles than the budget.  There
+//     (kWide) a range past the budget (a dense cloud at a large K) is
+//     staged and walked in pieces of at most the budget, in cell and slot
+//     order, the scan of a cell stops at its last live slot, and the
+//     counts read four mask bytes a lane.
 //  3. Each centre walks one contiguous span of the staged range per
 //     offset (cells p - 1 .. p + 1 of its own position p, trimmed at the z
 //     ends by its iz, skipped whole when ix + dx or iy + dy leaves the
-//     grid): every candidate is a live particle, and no dead slot is
-//     tested.  Pairs beyond the support are skipped; their kernel weight
-//     is zero.  About 15% of the candidates of the 27 cells lie within the
-//     support, so nearly every candidate has some lane of the warp within
-//     it: the momentum kernels first test up to 32 candidates into a bit
-//     mask and then evaluate the set bits, so that the lanes evaluate
-//     their pairs together; the density pair is too cheap for that to pay.
-//     Neighbours are visited in cell, then slot order, as the wide kernels
-//     visit them.
-// Shared memory is dynamic: the staged float4s of (T + 2) K slots and the
-// T K int16 centre list, at most 38.9 KB.  Staging is synchronous: other
-// CTAs of the SM (8 or more at 64 registers) hide its loads, and double-
+//     grid), piece by piece: every candidate is a live particle, and no
+//     dead slot is tested.  Pairs beyond the support are skipped; their
+//     kernel weight is zero.  About 15% of the candidates of the 27 cells
+//     lie within the support, so nearly every candidate has some lane of
+//     the warp within it: the momentum kernels first test up to 32
+//     candidates into a bit mask and then evaluate the set bits, so that
+//     the lanes evaluate their pairs together; the density pair is too
+//     cheap for that to pay.  Neighbours are visited in cell, then slot
+//     order, in every piece layout.
+// Shared memory is the staged float4s (dynamic; at most 36.9 KB, momentum
+// at T = 16, the same at K = 1024 as at K = 64) and about 2.2 KB of
+// counts, start table and centre list.  Staging is synchronous: other CTAs
+// of the SM (8 or more at 64 registers) hide its loads, and double-
 // buffering the raw ranges with cp.async measured slower.
 //
-// The wide kernels: a cell list sized for its worst cell (K = 128 where a
-// 2h cell holds 18-30 particles) is filled from slot 0, so most of a
-// cell's slots are dead.  Nothing of the TPU kernels' layout (128-lane
-// padding, DMA windows, [B, Kp, Kp] pair matrices, the factorised MXU
-// reduction) carries over.  One warp still owns a cell, but walks its
-// slots in groups of 32: a centre group with no live slot writes zeros
-// and is done after one vote; each neighbour cell is read in chunks of 32
-// slots, a chunk with no live slot costs one mask byte per lane and one
-// ballot, and a live chunk is staged in shared memory and its live slots
-// alone are visited (the ballot's set bits).  Shared memory per warp is
-// one 32-slot chunk whatever K is, and a lane holds one centre's sums,
-// so registers and shared memory do not grow with K.  The masks may be
-// anything, prefix or not.  What bounds these kernels is what bounds the
-// others: the pair arithmetic of every live pair of the 27-cell block.
+// The wide density kernel (density_wide, K > 64) predates the tiles: one
+// warp owns a cell and walks its slots in groups of 32: a centre group
+// with no live slot writes zeros and is done after one vote; each
+// neighbour cell is read in chunks of 32 slots, a chunk with no live slot
+// costs one mask byte per lane and one ballot, and a live chunk is staged
+// in shared memory and its live slots alone are visited (the ballot's set
+// bits).  Shared memory per warp is one 32-slot chunk whatever K is.
+// Nothing of the TPU kernels' layout (128-lane padding, DMA windows,
+// [B, Kp, Kp] pair matrices, the factorised MXU reduction) carries over.
 //
 // Sums are f32 FMAs in registers; no tensor cores, no TF32.
 
@@ -94,7 +101,7 @@
 namespace {
 
 constexpr int kWarps = 4;         // warps per CTA
-constexpr int kMaxK = 64;         // slots per cell the kernels take
+constexpr int kMaxK = 64;  // slots per cell of the two-tier kernels
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Kind { kWendlandC2 = 0, kCubicSpline = 1 };
@@ -161,12 +168,16 @@ __device__ __forceinline__ void density_pair(
 }
 
 // ---------------------------------------------------------------------------
-// The tile walk of the two-tier kernels (K <= 64): see the note at the top.
+// The tile walk: see the note at the top.
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 32 * kWarps;  // threads per CTA, centres per round
 constexpr int kMaxTile = 16;           // cells per tile
 constexpr int kMaxRange = kMaxTile + 2;  // cells per staged id range
+constexpr int kMaxWideK = 1024;  // slots per cell the momentum tiles take
+// entries of the centre list: every centre slot of a tile up to 64 slots
+// a cell, a ring past it
+constexpr int kList = kMaxTile * kMaxK;
 // CTAs an SM must hold (__launch_bounds__), which caps the registers a
 // thread: at 64 the momentum kernels do not spill (the compiler's own
 // choice of 48 spilled 16-20 bytes); at 42 the density kernel takes 40
@@ -174,62 +185,86 @@ constexpr int kMaxRange = kMaxTile + 2;  // cells per staged id range
 constexpr int kTilesPerSM = 8;
 constexpr int kDensityTilesPerSM = 12;
 
-// Shared memory of a tile walk besides the staged planes and the centre
-// list (those two are dynamic: their size follows T and K).
+// Shared memory of a tile walk besides the staged planes (those are
+// dynamic: their size follows T and min(K, 64)).
 struct TileShared {
   int count[kMaxRange];      // live slots of each cell of the range
-  int start[kMaxRange + 1];  // where each cell's slots begin in the planes
+  int start[kMaxRange + 1];  // where each cell's slots begin in the range
   int wsum[2][kWarps];       // live centres per warp, double-buffered
+  int16_t list[kList];       // listed centre i (its slot in the tile) at
+                             // i % kList
 };
 
 __device__ __forceinline__ unsigned lanes_below(int lane) {
   return (1u << lane) - 1u;
 }
 
-// Step 1: rank the live slots of the tile's first `nslots` centre slots
-// (mask row `mc`) into `list`, in slot order; `dead(s)` is called for every
-// dead slot.  Returns the number of live centres (the same in every
-// thread); `list` is complete on return.
+// Particles one staged piece holds: (T + 2) min(K, 64), so a launch at
+// K <= 64 stages every range whole, as many particles as its T + 2 cells
+// have slots, and shared memory stops growing with K past 64.
+__host__ __device__ __forceinline__ int stage_cap(int T, int K) {
+  return (T + 2) * (K < kMaxK ? K : kMaxK);
+}
+
+// Step 1, one chunk of kThreads centre slots: rank the live slots of
+// slots s0 .. s0 + kThreads - 1 of the tile (mask row `mc`, `nslots`
+// slots) into the list behind the `n` centres listed before, in slot
+// order; `dead(s)` is called for every dead slot.  Returns the new count
+// (the same in every thread).  `parity` alternates between successive
+// chunks, so one barrier a chunk keeps the warp sums apart.
 template <typename Dead>
-__device__ __forceinline__ int compact_centres(const uint8_t* __restrict__ mc,
-                                               int nslots, int16_t* list,
-                                               TileShared& sh, Dead dead) {
+__device__ __forceinline__ int list_centres(const uint8_t* __restrict__ mc,
+                                            int s0, int nslots, int n,
+                                            int parity, TileShared& sh,
+                                            Dead dead) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int n = 0;
-  for (int s0 = 0, r = 0; s0 < nslots; s0 += kThreads, r ^= 1) {
-    const int s = s0 + threadIdx.x;
-    const bool ok = s < nslots;
-    const bool live = ok && mc[s] != 0;
-    if (ok && !live) dead(s);
-    const unsigned bits = __ballot_sync(kFull, live);
-    if (lane == 0) sh.wsum[r][warp] = __popc(bits);
-    __syncthreads();
-    int before = n;
-    for (int w = 0; w < warp; ++w) before += sh.wsum[r][w];
-    if (live) list[before + __popc(bits & lanes_below(lane))] = (int16_t)s;
-    for (int w = 0; w < kWarps; ++w) n += sh.wsum[r][w];
-  }
+  const int s = s0 + threadIdx.x;
+  const bool ok = s < nslots;
+  const bool live = ok && mc[s] != 0;
+  if (ok && !live) dead(s);
+  const unsigned bits = __ballot_sync(kFull, live);
+  if (lane == 0) sh.wsum[parity][warp] = __popc(bits);
   __syncthreads();
+  int before = n;
+  for (int w = 0; w < warp; ++w) before += sh.wsum[parity][w];
+  if (live) {
+    sh.list[(before + __popc(bits & lanes_below(lane))) & (kList - 1)] =
+        (int16_t)s;
+  }
+  for (int w = 0; w < kWarps; ++w) n += sh.wsum[parity][w];
   return n;
 }
 
 // Step 2a: the live-slot count of each of the `np` cells lo .. lo + np - 1
-// (zero for a cell outside [0, ncell)), one warp per cell.  Returns whether
-// this warp counted a live slot.
+// (zero for a cell outside [0, ncell)), one warp per cell.  Past 64 slots
+// (kWide) a lane reads four mask bytes where the rows are word-aligned.
+// Returns whether this warp counted a live slot.
+template <bool kWide>
 __device__ __forceinline__ bool count_range(const uint8_t* __restrict__ mn,
                                             int lo, int np, int ncell, int K,
                                             int* count) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const bool words =
+      kWide && (K & 3) == 0 && (reinterpret_cast<uintptr_t>(mn) & 3) == 0;
   bool any = false;
   for (int p = warp; p < np; p += kWarps) {
     const int cell = lo + p;
     int n = 0;
     if (cell >= 0 && cell < ncell) {  // warp-uniform
       const uint8_t* m = mn + (long long)cell * K;
-      for (int s = lane; s - lane < K; s += 32) {
-        n += __popc(__ballot_sync(kFull, s < K && m[s] != 0));
+      if (words) {
+        const uint32_t* m4 = reinterpret_cast<const uint32_t*>(m);
+        int c = 0;
+        for (int w = lane; w < K / 4; w += 32) {
+          c += __popc(__vcmpne4(m4[w], 0u)) >> 3;
+        }
+        n = __reduce_add_sync(kFull, c);
+      } else {
+        for (int s = lane; s - lane < K; s += 32) {
+          n += __popc(__ballot_sync(kFull, s < K && m[s] != 0));
+        }
       }
     }
     if (lane == 0) count[p] = n;
@@ -238,17 +273,12 @@ __device__ __forceinline__ bool count_range(const uint8_t* __restrict__ mn,
   return any;
 }
 
-// Step 2b: stage the live slots of the range, compacted in cell and slot
-// order: a particle is kV float4s, element e of them plane e of the
-// neighbour tier (src[e], a [C, K] plane; 0 past kF planes), vector v of
-// particle j at s4[v * cap + j]; start[p] .. start[p + 1] are cell p's.
-// Every warp scans the np <= 18 counts itself; warp 0 writes the start
-// table.
-template <int kF>
-__device__ __forceinline__ void stage_range(
-    const float* const (&src)[kF], const uint8_t* __restrict__ mn, int lo,
-    int np, int ncell, int K, TileShared& sh, float4* s4, int cap) {
-  constexpr int kV = (kF + 3) / 4;
+// Step 2b: the start table of the counted range.  Every warp scans the
+// np <= 18 counts itself and returns the range's live total; lane p holds
+// in `excl` where cell p's slots begin (lane np: the total), and warp 0
+// writes the table.
+__device__ __forceinline__ int range_starts(int np, TileShared& sh,
+                                            int& excl) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int n = lane < np ? sh.count[lane] : 0;
@@ -258,18 +288,43 @@ __device__ __forceinline__ void stage_range(
     const int t = __shfl_up_sync(kFull, incl, d);
     if (lane >= d) incl += t;
   }
-  const int excl = incl - n;  // lane np: the range's total
+  excl = incl - n;
   if (warp == 0 && lane <= np) sh.start[lane] = excl;
+  return __shfl_sync(kFull, excl, np);
+}
+
+// Step 2c: stage the live slots [q0, q1) of the range (in cell and slot
+// order; q1 - q0 <= cap): a particle is kV float4s, element e of them
+// plane e of the neighbour tier (src[e], a [C, K] plane; 0 past kF
+// planes), vector v of live slot q at s4[v * cap + q - q0].  `excl` is
+// range_starts'.  Up to 64 slots the range is staged whole (q0 = 0, q1 =
+// its total).  Past them (kWide) it may be a piece: a cell outside it is
+// not read, and a cell's scan ends at its last live slot of the piece,
+// so a cell list sized for its worst cell is not read past its live
+// slots when its mask is a prefix.
+template <int kF, bool kWide>
+__device__ __forceinline__ void stage_range(
+    const float* const (&src)[kF], const uint8_t* __restrict__ mn, int lo,
+    int np, int ncell, int K, int excl, int q0, int q1, float4* s4,
+    int cap) {
+  constexpr int kV = (kF + 3) / 4;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   for (int p = warp; p < np; p += kWarps) {
     int q = __shfl_sync(kFull, excl, p);
-    const int cell = lo + p;
-    if (cell < 0 || cell >= ncell) continue;  // warp-uniform
-    const long long row = (long long)cell * K;
-    for (int s = lane; s - lane < K; s += 32) {
+    int end = q1;
+    if constexpr (kWide) {
+      end = min(__shfl_sync(kFull, excl, p + 1), q1);
+      if (q >= end || end <= q0) continue;  // warp-uniform
+    } else if (lo + p < 0 || lo + p >= ncell) {
+      continue;
+    }
+    const long long row = (long long)(lo + p) * K;
+    for (int s = lane; s - lane < K && (!kWide || q < end); s += 32) {
       const bool live = s < K && mn[row + s] != 0;
       const unsigned bits = __ballot_sync(kFull, live);
-      if (live) {
-        const int dst = q + __popc(bits & lanes_below(lane));
+      const int dst = q + __popc(bits & lanes_below(lane)) - q0;
+      if (live && (!kWide || (dst >= 0 && dst < end - q0))) {
         float e[4 * kV];
 #pragma unroll
         for (int f = 0; f < 4 * kV; ++f) {
@@ -286,30 +341,80 @@ __device__ __forceinline__ void stage_range(
   }
 }
 
-// Steps 2-3 for every live centre of the tile [c0, c0 + T): rounds of
-// kThreads centres; thread t of a round owns centre list[r0 + t] and calls
-// `load(s)` with its slot s in the tile, `pair(j)` for every staged
-// neighbour j of its 27 cells that `near(j)` (in cell, then slot order),
-// and `store(s)`.  With kMasked a span is tested in groups of up to 32
-// candidates into a bit mask before any pair is evaluated, so the lanes of
-// a warp evaluate their pairs together instead of each candidate within
-// the support of any lane costing the whole warp a pair; that pays where
-// a pair costs much more than its test (the momentum kernels), not in the
-// density kernel, which calls pair(j) on every candidate.
-template <int kF, bool kMasked, typename Load, typename Near, typename Pair,
-          typename Store>
+// Step 3 for one centre over the staged candidates [b, e) (in cell, then
+// slot order): `pair(j)` for every j that `near(j)`.  With kMasked a span
+// is tested in groups of up to 32 candidates into a bit mask before any
+// pair is evaluated, so the lanes of a warp evaluate their pairs together
+// instead of each candidate within the support of any lane costing the
+// whole warp a pair; that pays where a pair costs much more than its test
+// (the momentum kernels), not in the density kernel, which calls pair(j)
+// on every candidate.
+template <bool kMasked, typename Near, typename Pair>
+__device__ __forceinline__ void walk_span(int b, int e, Near near,
+                                          Pair pair) {
+  if constexpr (kMasked) {
+    for (int j0 = b; j0 < e; j0 += 32) {
+      const int m = min(32, e - j0);
+      unsigned hits = 0u;
+      for (int i = 0; i < m; ++i) hits |= (unsigned)near(j0 + i) << i;
+      for (; hits != 0u; hits &= hits - 1u) pair(j0 + __ffs(hits) - 1);
+    }
+  } else {
+    for (int j = b; j < e; ++j) pair(j);
+  }
+}
+
+// Steps 1-3 for the tile [c0, c0 + T): rounds of kThreads live centres.
+// Thread t of a round owns centre r0 + t of the list and calls `load(s)`
+// with its slot s in the tile, `pair(j)` for every staged neighbour j of
+// its 27 cells that `near(j)` (in cell, then slot order), and `store(s)`;
+// `dead(s)` is called for every dead centre slot.  Up to 64 slots a cell
+// the whole tile is ranked first (at most kList slots) and every range is
+// staged whole.  Past them (kWide) the list is a ring: before each round
+// the CTA ranks further chunks while a chunk fits behind the unread
+// centres, so the list holds at most kList centres whatever K is; and a
+// range with more live slots than `stage_cap` is staged and walked in
+// pieces of at most that many, in order, so the order of the sums does
+// not change.  kWide (with the word counts and the staging scan that
+// stops at a cell's last live slot) is a compile-time choice, made from K
+// at the launch: the K <= 64 roles measured 3-32% slower with it, mostly
+// through the registers it takes.
+template <int kF, bool kMasked, bool kWide, typename Dead, typename Load,
+          typename Near, typename Pair, typename Store>
 __device__ __forceinline__ void walk_tile(
-    const float* const (&src)[kF], const uint8_t* __restrict__ mn,
-    const Geometry& g, int c0, int T, int n_live, const int16_t* list,
-    float4* s4, TileShared& sh, Load load, Near near, Pair pair,
+    const float* const (&src)[kF], const uint8_t* __restrict__ mc,
+    const uint8_t* __restrict__ mn, const Geometry& g, int c0, int T,
+    float4* s4, TileShared& sh, Dead dead, Load load, Near near, Pair pair,
     Store store) {
   const int ncell = g.nx * g.ny * g.nz;
   const int np = T + 2;
-  const int cap = np * g.k;
-  for (int r0 = 0; r0 < n_live; r0 += kThreads) {
+  const int cap = stage_cap(T, g.k);
+  const int nslots = min(T, ncell - c0) * g.k;
+  const uint8_t* mt = mc + (long long)c0 * g.k;
+  int n = 0;       // centres listed
+  int ranked = 0;  // centre slots ranked
+  if constexpr (!kWide) {
+    for (; ranked < nslots; ranked += kThreads) {
+      n = list_centres(mt, ranked, nslots, n, (ranked / kThreads) & 1, sh,
+                       dead);
+    }
+    __syncthreads();
+  }
+  for (int r0 = 0;; r0 += kThreads) {
+    if constexpr (kWide) {
+      while (ranked < nslots && n - r0 <= kList - kThreads) {  // uniform
+        n = list_centres(mt, ranked, nslots, n, (ranked / kThreads) & 1,
+                         sh, dead);
+        ranked += kThreads;
+      }
+      if (r0 >= n) break;
+      __syncthreads();  // the round's centres are listed
+    } else {
+      if (r0 >= n) break;
+    }
     const int t = r0 + (int)threadIdx.x;
-    const bool has = t < n_live;
-    const int s = has ? list[t] : 0;
+    const bool has = t < n;
+    const int s = has ? sh.list[t & (kList - 1)] : 0;
     const int cell = c0 + s / g.k;
     int ix, iy, iz;
     cell_coords(cell, g, ix, iy, iz);
@@ -325,28 +430,33 @@ __device__ __forceinline__ void walk_tile(
       // barrier, so restaging cannot overwrite what is being read; a range
       // without a live slot (a cross role against a sparse tier) is
       // neither staged nor walked
-      if (!__syncthreads_or(count_range(mn, lo, np, ncell, g.k, sh.count))) {
+      if (!__syncthreads_or(
+              count_range<kWide>(mn, lo, np, ncell, g.k, sh.count))) {
         continue;
       }
-      stage_range<kF>(src, mn, lo, np, ncell, g.k, sh, s4, cap);
-      __syncthreads();
+      int excl;
+      const int total = range_starts(np, sh, excl);
       const int jx = ix + dx;
       const int jy = iy + dy;
-      if (has && jx >= 0 && jx < g.nx && jy >= 0 && jy < g.ny) {
-        const int e = sh.start[e_at];
-        if constexpr (kMasked) {
-          for (int j0 = sh.start[b_at]; j0 < e; j0 += 32) {
-            const int n = min(32, e - j0);
-            unsigned hits = 0u;
-            for (int i = 0; i < n; ++i) {
-              hits |= (unsigned)near(j0 + i) << i;
-            }
-            for (; hits != 0u; hits &= hits - 1u) {
-              pair(j0 + __ffs(hits) - 1);
-            }
+      const bool walks = has && jx >= 0 && jx < g.nx && jy >= 0 && jy < g.ny;
+      if constexpr (kWide) {
+        for (int q0 = 0; q0 < total; q0 += cap) {  // uniform
+          if (q0 > 0) __syncthreads();  // the previous piece is walked
+          const int q1 = min(q0 + cap, total);
+          stage_range<kF, true>(src, mn, lo, np, ncell, g.k, excl, q0, q1,
+                                s4, cap);
+          __syncthreads();
+          if (walks) {
+            walk_span<kMasked>(max(sh.start[b_at], q0) - q0,
+                               min(sh.start[e_at], q1) - q0, near, pair);
           }
-        } else {
-          for (int j = sh.start[b_at]; j < e; ++j) pair(j);
+        }
+      } else {
+        stage_range<kF, false>(src, mn, lo, np, ncell, g.k, excl, 0, total,
+                               s4, cap);
+        __syncthreads();
+        if (walks) {
+          walk_span<kMasked>(sh.start[b_at], sh.start[e_at], near, pair);
         }
       }
     }
@@ -354,12 +464,11 @@ __device__ __forceinline__ void walk_tile(
   }
 }
 
-// Dynamic shared memory of a tile launch: the staged float4s of (T + 2) K
-// particles, then the centre list of T K int16 (at most 38.9 KB, within
-// the 48 KB a launch takes without opting in).
+// Dynamic shared memory of a tile launch: the staged float4s of
+// stage_cap(T, K) particles (at most 36.9 KB, momentum at T = 16, the same
+// at any K past 64; within the 48 KB a launch takes without opting in).
 inline size_t tile_smem(int kF, int T, int K) {
-  return (size_t)(kF + 3) / 4 * (T + 2) * K * sizeof(float4) +
-         (size_t)T * K * 2;
+  return (size_t)(kF + 3) / 4 * stage_cap(T, K) * sizeof(float4);
 }
 
 // r^2 between a centre and staged position p, as the pair functions take
@@ -388,20 +497,14 @@ density_pairs_kernel(const float* __restrict__ xc,
   __shared__ TileShared sh;
   constexpr int kF = 3;
   const int ncell = g.nx * g.ny * g.nz;
-  const int K = g.k;
   const int c0 = blockIdx.x * T;
-  const int cap = (T + 2) * K;
-  int16_t* list = reinterpret_cast<int16_t*>(s4 + cap);
-  const long long plane = (long long)ncell * K;
-  const long long base = (long long)c0 * K;
-  const int nslots = min(T, ncell - c0) * K;
-
-  const int n_live = compact_centres(mc + base, nslots, list, sh,
-                                     [&](int s) { out[base + s] = 0.f; });
+  const long long plane = (long long)ncell * g.k;
+  const long long base = (long long)c0 * g.k;
   const float* const src[kF] = {xn, xn + plane, xn + 2 * plane};
   float cx, cy, cz, acc;
-  walk_tile<kF, false>(
-      src, mn, g, c0, T, n_live, list, s4, sh,
+  walk_tile<kF, false, false>(
+      src, mc, mn, g, c0, T, s4, sh,
+      [&](int s) { out[base + s] = 0.f; },
       [&](int s) {
         cx = xc[base + s];
         cy = xc[plane + base + s];
@@ -495,7 +598,9 @@ __device__ __forceinline__ void momentum_pair(
   }
 }
 
-template <bool kDrho>  // also sum drho/dt (accel_drho_pairs)
+// kDrho: also sum drho/dt (accel_drho_pairs); kWide: past 64 slots a cell
+// (accel_wide, accel_drho_wide).
+template <bool kDrho, bool kWide>
 __global__ void __launch_bounds__(kThreads, kTilesPerSM)
 accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                    const float* __restrict__ rhoc,
@@ -513,25 +618,21 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
   constexpr int kF = kMask;  // the planes before kMask, two float4s
   constexpr int kOut = kDrho ? 4 : 3;
   const int ncell = g.nx * g.ny * g.nz;
-  const int K = g.k;
   const int c0 = blockIdx.x * T;
-  const int cap = (T + 2) * K;
-  int16_t* list = reinterpret_cast<int16_t*>(s4 + 2 * cap);
-  const long long plane = (long long)ncell * K;
-  const long long base = (long long)c0 * K;
-  const int nslots = min(T, ncell - c0) * K;
-
-  const int n_live = compact_centres(mc + base, nslots, list, sh, [&](int s) {
-#pragma unroll
-    for (int o = 0; o < kOut; ++o) out[o * plane + base + s] = 0.f;
-  });
+  const int cap = stage_cap(T, g.k);
+  const long long plane = (long long)ncell * g.k;
+  const long long base = (long long)c0 * g.k;
   const float* const src[kF] = {xn, xn + plane, xn + 2 * plane,
                                 vn, vn + plane, vn + 2 * plane,
                                 rhon, ptn};
   Particle c;
   float ax, ay, az, dr;
-  walk_tile<kF, true>(
-      src, mn, g, c0, T, n_live, list, s4, sh,
+  walk_tile<kF, true, kWide>(
+      src, mc, mn, g, c0, T, s4, sh,
+      [&](int s) {
+#pragma unroll
+        for (int o = 0; o < kOut; ++o) out[o * plane + base + s] = 0.f;
+      },
       [&](int s) {
         const long long i = base + s;
         c = Particle{xc[i], xc[plane + i], xc[2 * plane + i],
@@ -557,7 +658,7 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
 }
 
 // ---------------------------------------------------------------------------
-// The wide kernels (K > 64): see the note at the top.
+// The wide density kernel (K > 64): see the note at the top.
 // ---------------------------------------------------------------------------
 
 constexpr int kChunk = 32;  // slots per centre group and per staged chunk
@@ -640,77 +741,6 @@ density_wide_kernel(const float* __restrict__ xc,
   }
 }
 
-// accel_wide (kDrho = false) and accel_drho_wide (kDrho = true): the sums
-// of accel_pairs_kernel for any K; output as there.
-template <bool kDrho>
-__global__ void __launch_bounds__(32 * kWarps)
-accel_wide_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
-                  const float* __restrict__ rhoc,
-                  const float* __restrict__ ptc,
-                  const uint8_t* __restrict__ mc,
-                  const float* __restrict__ xn, const float* __restrict__ vn,
-                  const float* __restrict__ rhon,
-                  const float* __restrict__ ptn,
-                  const uint8_t* __restrict__ mn, float* __restrict__ out,
-                  Geometry g, int kind, float inv2h, float h, float sigma,
-                  float h2eps, float cv, float supp2, DrhoFolds f) {
-  __shared__ float s_f[kWarps][kMask][kChunk];  // the planes before kMask
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ncell = g.nx * g.ny * g.nz;
-  const int cell = blockIdx.x * kWarps + warp;
-  if (cell >= ncell) return;  // warp-uniform
-  const long long plane = (long long)ncell * g.k;
-  const long long base = (long long)cell * g.k;
-
-  for (int c0 = 0; c0 < g.k; c0 += kChunk) {  // centre groups
-    const bool ok = c0 + lane < g.k;
-    const long long i = base + c0 + lane;
-    const bool live = ok && mc[i] != 0;
-    float ax = 0.f, ay = 0.f, az = 0.f, dr = 0.f;
-    if (__any_sync(kFull, live)) {
-      Particle c{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f};
-      if (live) {
-        c = Particle{xc[i], xc[plane + i], xc[2 * plane + i],
-                     vc[i], vc[plane + i], vc[2 * plane + i],
-                     rhoc[i], ptc[i]};
-      }
-      for_live_chunks(cell, g, mn, lane,
-                      [&](long long nb, bool m, unsigned bits) {
-        __syncwarp();  // the previous chunk has been read
-        if (m) {
-          const long long j = nb + lane;
-          s_f[warp][kX][lane] = xn[j];
-          s_f[warp][kY][lane] = xn[plane + j];
-          s_f[warp][kZ][lane] = xn[2 * plane + j];
-          s_f[warp][kVx][lane] = vn[j];
-          s_f[warp][kVy][lane] = vn[plane + j];
-          s_f[warp][kVz][lane] = vn[2 * plane + j];
-          s_f[warp][kRho][lane] = rhon[j];
-          s_f[warp][kPt][lane] = ptn[j];
-        }
-        __syncwarp();
-        for (; bits != 0u; bits &= bits - 1u) {
-          const int j = __ffs(bits) - 1;
-          const Particle y{s_f[warp][kX][j],  s_f[warp][kY][j],
-                           s_f[warp][kZ][j],  s_f[warp][kVx][j],
-                           s_f[warp][kVy][j], s_f[warp][kVz][j],
-                           s_f[warp][kRho][j], s_f[warp][kPt][j]};
-          momentum_pair<kDrho>(c, y, 1.f, kind, inv2h, h, sigma, h2eps, cv,
-                               supp2, f, ax, ay, az, dr);
-        }
-      });
-    }
-    if (ok) {
-      out[i] = live ? ax : 0.f;
-      out[plane + i] = live ? ay : 0.f;
-      out[2 * plane + i] = live ? az : 0.f;
-      if constexpr (kDrho) out[3 * plane + i] = live ? f.adrho * dr : 0.f;
-    }
-  }
-}
-
 inline int launch_blocks(int ncell) { return (ncell + kWarps - 1) / kWarps; }
 
 }  // namespace
@@ -742,6 +772,8 @@ int tpgsd_density_pairs(const float* xc, const uint8_t* mc, const float* xn,
 
 // n_out = 3: accel_pairs, out [3, C, K]; the four drho folds are unused.
 // n_out = 4: accel_drho_pairs, out [4, C, K] with drho/dt as plane 3.
+// Any k up to 1024: one kernel serves the two-tier roles and the single
+// tier past 64 slots (accel_wide, accel_drho_wide).
 int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
                       const float* ptc, const uint8_t* mc, const float* xn,
                       const float* vn, const float* rhon, const float* ptn,
@@ -751,14 +783,16 @@ int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
                       float supp2, float adrho, float ddfold, float eta2,
                       float rho_floor, void* stream) {
   const int ncell = nx * ny * nz;
-  if (ncell <= 0 || k <= 0 || k > kMaxK || tile < 1 || tile > kMaxTile ||
-      (n_out != 3 && n_out != 4)) {
+  if (ncell <= 0 || k <= 0 || k > kMaxWideK || tile < 1 ||
+      tile > kMaxTile || (n_out != 3 && n_out != 4)) {
     return (int)cudaErrorInvalidValue;
   }
   const Geometry g{nx, ny, nz, k};
   const DrhoFolds f{adrho, ddfold, eta2, rho_floor};
-  auto* kernel = n_out == 4 ? accel_pairs_kernel<true>
-                            : accel_pairs_kernel<false>;
+  auto* kernel = k > kMaxK ? (n_out == 4 ? accel_pairs_kernel<true, true>
+                                          : accel_pairs_kernel<false, true>)
+                           : (n_out == 4 ? accel_pairs_kernel<true, false>
+                                         : accel_pairs_kernel<false, false>);
   kernel<<<(ncell + tile - 1) / tile, kThreads, tile_smem(kMask, tile, k),
            static_cast<cudaStream_t>(stream)>>>(
       xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, tile, kind,
@@ -766,8 +800,8 @@ int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
   return (int)cudaGetLastError();
 }
 
-// The wide kernels: arguments as tpgsd_density_pairs and tpgsd_accel_pairs,
-// any k >= 1 (the Python wrapper sends k > 64 here).
+// The wide density kernel: arguments as tpgsd_density_pairs without the
+// tile, any k >= 1 (the Python wrapper sends k > 64 here).
 int tpgsd_density_wide(const float* xc, const uint8_t* mc, const float* xn,
                        const uint8_t* mn, float* out, int nx, int ny, int nz,
                        int k, int kind, float inv2h, float invh2, float mfold,
@@ -778,28 +812,6 @@ int tpgsd_density_wide(const float* xc, const uint8_t* mc, const float* xn,
   density_wide_kernel<<<launch_blocks(ncell), 32 * kWarps, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       xc, mc, xn, mn, out, g, kind, inv2h, invh2, mfold, h, sigma, supp2);
-  return (int)cudaGetLastError();
-}
-
-int tpgsd_accel_wide(const float* xc, const float* vc, const float* rhoc,
-                     const float* ptc, const uint8_t* mc, const float* xn,
-                     const float* vn, const float* rhon, const float* ptn,
-                     const uint8_t* mn, float* out, int n_out, int nx, int ny,
-                     int nz, int k, int kind, float inv2h, float h,
-                     float sigma, float h2eps, float cv, float supp2,
-                     float adrho, float ddfold, float eta2, float rho_floor,
-                     void* stream) {
-  const int ncell = nx * ny * nz;
-  if (ncell <= 0 || k <= 0 || (n_out != 3 && n_out != 4)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Geometry g{nx, ny, nz, k};
-  const DrhoFolds f{adrho, ddfold, eta2, rho_floor};
-  auto* kernel = n_out == 4 ? accel_wide_kernel<true> : accel_wide_kernel<false>;
-  kernel<<<launch_blocks(ncell), 32 * kWarps, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, kind, inv2h, h,
-      sigma, h2eps, cv, supp2, f);
   return (int)cudaGetLastError();
 }
 

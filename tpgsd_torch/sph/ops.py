@@ -23,9 +23,13 @@ A self pass and a cross pass differ only in which tier holds the centres
 and which the neighbours, so each wrapper takes both tiers explicitly.
 The single-tier entry points :func:`density`, :func:`accel` and
 :func:`accel_drho` dispatch as the reference does: up to 64 slots per
-cell they launch the same kernels in their self role, past it the wide
-kernels, which walk a cell's slots in groups of 32 and skip the dead
-groups of a sparsely filled wide cell.
+cell they launch the two-tier kernels in their self role.  Past it the
+momentum passes launch the wide instances of the same tile kernel
+(counted as ``accel_wide`` and ``accel_drho_wide``), whose staging
+buffer is sized by a live-slot budget, not by K, and whose centre list
+is a ring; the density pass launches the wide density kernel,
+which walks a cell's slots in groups of 32 and skips the dead groups of
+a sparsely filled wide cell.
 What bounds the kernels on the H100 is the pair arithmetic and the L2
 re-reads of each neighbour cell; the designs are described at the top of
 the CUDA source.
@@ -60,11 +64,11 @@ from .step import (
 
 #: slots per cell the two-tier kernels take
 MAX_CAPACITY = 64
-#: cells per tile (one CTA of 128 threads) the two-tier kernels take
+#: cells per tile (one CTA of 128 threads) the tile kernels take
 MAX_TILE = 16
-#: slots per cell the wide kernels are admitted for.  They take any K;
-#: one warp walks the K/32 centre groups of its cell in turn, so a cell
-#: list this wide would better be a finer grid
+#: slots per cell the single-tier kernels take past :data:`MAX_CAPACITY`
+#: (the momentum tile kernel and the wide density kernel); a cell list
+#: this wide would better be a finer grid
 MAX_WIDE_CAPACITY = 1024
 
 #: kernel launches per role since the last :func:`reset_launch_counts`
@@ -88,8 +92,8 @@ def reset_launch_counts():
 
 def supported(grid):
     """True when some CUDA pair kernel takes ``grid.capacity`` slots per
-    cell: the two-tier kernels up to :data:`MAX_CAPACITY`, the wide
-    kernels past it."""
+    cell: the two-tier kernels up to :data:`MAX_CAPACITY`, the
+    single-tier kernels past it."""
     return 1 <= grid.capacity <= MAX_WIDE_CAPACITY
 
 
@@ -107,7 +111,7 @@ def accel_drho_supported(grid):
 
 
 def tile_cells(grid, params):
-    """T, the cells of one tile of the two-tier kernels: as many as a
+    """T, the cells of one tile of the tile kernels: as many as a
     fluid at rest fills with at most 128 live centres, so that one round
     of the CTA's 128 threads serves a typical tile.  A cell of side ``s``
     holds ``rho0 s^dim / mass`` particles at rest (at most K); nothing is
@@ -224,18 +228,21 @@ def _raise_on(lib, rc, name):
 
 def _role_key(family, grid, role):
     """The :data:`launch_counts` key of one launch: past
-    :data:`MAX_CAPACITY` slots every pass goes to the wide kernel."""
+    :data:`MAX_CAPACITY` slots every pass is the single tier's, counted
+    as ``<family>_wide``."""
     return "%s_%s" % (family, "wide" if grid.capacity > MAX_CAPACITY else role)
 
 
-def _tile(grid, params, tile):
-    """T of a two-tier launch: :func:`tile_cells` unless ``tile`` forces
-    it (1 .. :data:`MAX_TILE`); a forced tile on a grid past
-    :data:`MAX_CAPACITY` slots, which the wide kernels serve, raises."""
-    if grid.capacity > MAX_CAPACITY:
+def _tile(grid, params, tile, family):
+    """T of a tile launch of ``family``: :func:`tile_cells` unless
+    ``tile`` forces it (1 .. :data:`MAX_TILE`).  The momentum families
+    take tiles at any capacity; density past :data:`MAX_CAPACITY` slots
+    is the wide density kernel's (``None``), and a tile forced there
+    raises."""
+    if family == "density" and grid.capacity > MAX_CAPACITY:
         if tile is not None:
             raise ValueError(
-                "tile applies to the two-tier kernels (capacity <= %d); got "
+                "tile applies to the density kernel up to capacity %d; got "
                 "capacity %d" % (MAX_CAPACITY, grid.capacity)
             )
         return None
@@ -248,13 +255,16 @@ def _tile(grid, params, tile):
 
 
 def tile_shared_bytes(family, grid, params, tile=None):
-    """Bytes of dynamic shared memory one two-tier launch of ``family``
+    """Bytes of dynamic shared memory one tile launch of ``family``
     (``"density"``, ``"accel"`` or ``"accel_drho"``) asks for on ``grid``
     at tile ``tile`` (:func:`tile_cells` by default), as the kernel
-    library computes it for the launch."""
-    t = _tile(grid, params, tile)
+    library computes it for the launch: the staging buffer of (T + 2)
+    min(K, 64) particles, the same at any capacity past 64.  Density
+    past :data:`MAX_CAPACITY` slots has no tile launch and raises."""
+    t = _tile(grid, params, tile, family)
     if t is None:
-        raise ValueError("no tile launch past %d slots" % MAX_CAPACITY)
+        raise ValueError(
+            "no density tile launch past %d slots" % MAX_CAPACITY)
     return int(_build.load().tpgsd_tile_smem(
         int(family != "density"), t, grid.capacity))
 
@@ -262,7 +272,7 @@ def tile_shared_bytes(family, grid, params, tile=None):
 def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
     """One launch of the density kernel -> ``[C, K]``: ``density_pairs``
     (``tile`` cells per CTA, :func:`tile_cells` by default) up to
-    :data:`MAX_CAPACITY` slots, the wide kernel past it."""
+    :data:`MAX_CAPACITY` slots, the wide density kernel past it."""
     lib = _build.load()
     _check_launch(grid, (xc, xn), (), (mc, mn))
     code = kernel_code(kernel)
@@ -271,7 +281,7 @@ def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
     supp2 = (kernel.support_scale * h) ** 2
     out = torch.empty_like(mc, dtype=torch.float32)
     nx, ny, nz = grid.dims
-    tile = _tile(grid, params, tile)
+    tile = _tile(grid, params, tile, "density")
     args = (xc.data_ptr(), mc.data_ptr(), xn.data_ptr(), mn.data_ptr(),
             out.data_ptr(), nx, ny, nz, grid.capacity)
     folds = (code, inv2h, invh2, mfold, h, kernel._sigma(h, params.dim), supp2)
@@ -289,12 +299,12 @@ def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
 
 def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
                   params, kernel, role, delta_sph=None, tile=None):
-    """One launch of the momentum kernel -> ``[3, C, K]``, or with
+    """One launch of the momentum tile kernel -> ``[3, C, K]``, or with
     ``delta_sph`` (a number, 0 included) of its fused momentum +
     continuity instance -> ``[4, C, K]``, counted as ``accel_<role>`` or
-    ``accel_drho_<role>``; past :data:`MAX_CAPACITY` slots the wide
-    kernel's instances, counted as ``accel_wide`` and ``accel_drho_wide``;
-    ``tile`` as in :func:`_launch_density`."""
+    ``accel_drho_<role>``, and past :data:`MAX_CAPACITY` slots as
+    ``accel_wide`` and ``accel_drho_wide``; ``tile`` cells per CTA
+    (:func:`tile_cells` by default) at any capacity."""
     lib = _build.load()
     _check_launch(grid, (xc, vc, xn, vn), (rhoc, ptc, rhon, ptn), (mc, mn))
     code = kernel_code(kernel)
@@ -308,7 +318,7 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
     n_out = 4 if drho else 3
     out = xc.new_empty((n_out,) + tuple(mc.shape))
     nx, ny, nz = grid.dims
-    tile = _tile(grid, params, tile)
+    tile = _tile(grid, params, tile, name)
     args = (xc.data_ptr(), vc.data_ptr(), rhoc.data_ptr(), ptc.data_ptr(),
             mc.data_ptr(), xn.data_ptr(), vn.data_ptr(), rhon.data_ptr(),
             ptn.data_ptr(), mn.data_ptr(), out.data_ptr(), n_out,
@@ -317,10 +327,7 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
              supp2, *drho_folds)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if grid.capacity > MAX_CAPACITY:
-            rc = lib.tpgsd_accel_wide(*args, *folds, stream)
-        else:
-            rc = lib.tpgsd_accel_pairs(*args, tile, *folds, stream)
+        rc = lib.tpgsd_accel_pairs(*args, tile, *folds, stream)
     key = _role_key(name, grid, role)
     _raise_on(lib, rc, key)
     launch_counts[key] += 1
@@ -511,7 +518,8 @@ def density(dense_x, mask, grid, params, kernel=WendlandC2, wrap_axes=None):
     C, K]``, live mask ``[C(+1), K]``): 0 in dead slots.  ``wrap_axes``
     (3 bools) wraps these axes through a ghost-cell halo.  CPU tensors
     take the plain pass; CUDA tensors launch ``density_pairs`` in its
-    self role up to 64 slots per cell and the wide kernel past it."""
+    self role up to 64 slots per cell and the wide density kernel past
+    it."""
     def pairs(tier, g):
         x, m = tier
         if _on_cpu(x, m):
