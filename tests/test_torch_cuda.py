@@ -388,9 +388,8 @@ def test_tile_kernels_match_plain(cuda, case):
 def test_tile_shared_bytes(cuda):
     """A tile launch stages each particle of its T + 2 cells as one float4
     (density: x, y, z) or two (momentum: x, v, rho, pt), a budget of
-    (T + 2) min(K, 64) live particles: past 64 slots the momentum tiles
-    ask for what they ask for at K = 64, up to K = 1024; density has no
-    tile launch there."""
+    (T + 2) min(K, 64) live particles: past 64 slots every family asks
+    for what it asks for at K = 64, up to K = 1024."""
     db = dam_break(n_side=8, capacity=32, device="cpu")
     grid, params = db.grid, db.params
     for family, staged in (("density", 16), ("accel", 32), ("accel_drho", 32)):
@@ -399,19 +398,19 @@ def test_tile_shared_bytes(cuda):
     t = ops.tile_cells(grid, params)
     assert ops.tile_shared_bytes("density", grid, params) == (
         16 * (t + 2) * 32)
-    for family in ("accel", "accel_drho"):
+    for family, staged in (("density", 16), ("accel", 32), ("accel_drho", 32)):
         for tile in (1, 7, 16):
             at = [ops.tile_shared_bytes(family, grid._replace(capacity=k),
                                         params, tile)
                   for k in (64, 96, 128, ops.MAX_WIDE_CAPACITY)]
-            assert at == [32 * (tile + 2) * 64] * 4
+            assert at == [staged * (tile + 2) * 64] * 4
+    wide = grid._replace(capacity=96)
+    assert ops.tile_shared_bytes("density", wide, params) == (
+        16 * (ops.tile_cells(wide, params) + 2) * 64)
+    assert ops.tile_shared_bytes("density", wide, params, 7) == 9216
     assert ops.tile_shared_bytes(
         "accel", grid._replace(capacity=ops.MAX_WIDE_CAPACITY), params,
         ops.MAX_TILE) <= 48 * 1024
-    with pytest.raises(ValueError, match="tile applies to the density"):
-        ops.tile_shared_bytes("density", grid._replace(capacity=96), params, 7)
-    with pytest.raises(ValueError, match="no density tile launch"):
-        ops.tile_shared_bytes("density", grid._replace(capacity=96), params)
 
 
 # --------------------------------------------------------------------------
@@ -511,8 +510,8 @@ def _most_live_in_a_range(live, dims, tile):
 
 
 def _wide_tile_case(dev, case):
-    """``(grid, params, tier, tiles)`` of one edge of the momentum tile
-    kernel past 64 slots: ``tier`` is ``(x, v, rho, p, mask)``, ``tiles``
+    """``(grid, params, tier, tiles)`` of one edge of the tile kernels
+    past 64 slots: ``tier`` is ``(x, v, rho, p, mask)``, ``tiles``
     the cells per CTA to run (``None``: the wrapper's rule)."""
     if case == "k1024":  # 4 x 4 x 4 cells, about 800 particles in one
         grid, params, tier = _cloud_tier(dev, ops.MAX_WIDE_CAPACITY, True,
@@ -546,25 +545,28 @@ def _wide_tile_case(dev, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "case", ["k1024", "dense", "dense_prefix", "2d", "ragged"])
-def test_momentum_tiles_past_64_slots_match_plain(cuda, case):
-    """``accel_pairs`` and ``accel_drho_pairs`` past 64 slots (the
-    momentum tile kernel that serves ``accel_wide`` and
-    ``accel_drho_wide``) against their plain versions at forced tiles: K =
-    1024 on a small grid; a cloud whose densest id ranges hold more than
-    twice the staging budget of a T = 1 tile (so they are staged in three
-    or more pieces) and whose densest cells more than 128 live centres (a
-    second round), with arbitrary and prefix masks; a 2-D grid; a cell
-    count that is not a multiple of T.  Both smoothing kernels, delta-SPH
-    0 and 0.1; every output plane scaled by its max; dead centre slots
-    are exactly 0."""
+def test_tiles_past_64_slots_match_plain(cuda, case):
+    """``density_pairs``, ``accel_pairs`` and ``accel_drho_pairs`` past
+    64 slots (the tile kernels' wide instances that serve
+    ``density_wide``, ``accel_wide`` and ``accel_drho_wide``) against
+    their plain versions at forced tiles: K = 1024 on a small grid; a
+    cloud whose densest id ranges hold more than twice the staging budget
+    of a T = 1 tile (so they are staged in three or more pieces) and
+    whose densest cells more than 128 live centres (a second round), with
+    arbitrary and prefix masks; a 2-D grid; a cell count that is not a
+    multiple of T.  Both smoothing kernels, delta-SPH 0 and 0.1; density
+    at rtol 1e-5, atol 1e-6 and momentum at rtol 1e-4, atol 1e-5, every
+    output plane scaled by its max; dead centre slots are exactly 0."""
     grid, params, tier, tiles = _wide_tile_case(cuda, case)
     m = tier[4]
     live = m.cpu().numpy()
     assert grid.capacity > ops.MAX_CAPACITY
     if case in ("k1024", "dense", "dense_prefix"):
         assert int(live.sum()) == 3800, "no particle may overflow"
-        # live particles a T = 1 tile stages at once (32 B each)
+        # live particles a T = 1 tile stages at once (32 B each for
+        # momentum, 16 B for density: the same budget)
         cap = ops.tile_shared_bytes("accel", grid, params, 1) // 32
+        assert cap == ops.tile_shared_bytes("density", grid, params, 1) // 16
         assert _most_live_in_a_range(live, grid.dims, 1) > 2 * cap
         assert int(live.sum(axis=1).max()) > 128
     if case == "k1024":
@@ -572,7 +574,14 @@ def test_momentum_tiles_past_64_slots_match_plain(cuda, case):
     if case == "dense_prefix":
         assert not (live[:, 1:] & ~live[:, :-1]).any(), "prefix masks"
     ops.reset_launch_counts()
+    x = tier[0]
     for kernel in (port_kernels.WendlandC2, port_kernels.CubicSpline):
+        want = ops.density_pairs_plain(x, m, x, m, grid, params, kernel=kernel)
+        for tile in tiles:
+            got = ops.density_pairs(x, m, x, m, grid, params, kernel=kernel,
+                                    tile=tile)
+            assert not bool(got[~m].any()), "dead centre slots"
+            _scaled_close(got, want, live, 1e-5, 1e-6)
         for fn, plain, kw in (
             (ops.accel_pairs, ops.accel_pairs_plain, {}),
             (ops.accel_drho_pairs, ops.accel_drho_pairs_plain,
@@ -588,7 +597,8 @@ def test_momentum_tiles_past_64_slots_match_plain(cuda, case):
                 for col in range(got.shape[0]):
                     _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
     torch.cuda.synchronize()
-    assert _launched() == {"accel_wide": 2 * len(tiles),
+    assert _launched() == {"density_wide": 2 * len(tiles),
+                           "accel_wide": 2 * len(tiles),
                            "accel_drho_wide": 4 * len(tiles)}
 
 

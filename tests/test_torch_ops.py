@@ -420,29 +420,18 @@ def test_tile_cells_fills_one_round_of_centres(scenario, capacity, want):
 
 
 def test_forced_tile_is_range_checked():
+    """Every family (density, accel, accel_drho) takes the same tile at
+    any capacity, past 64 slots too: ``tile_cells`` by default, 1 .. 16
+    forced, and a tile outside that raises."""
     from tpgsd_torch.sph.dam_break import dam_break
 
     db = dam_break(n_side=6, capacity=24, device="cpu")
     grid, params = db.grid, db.params
-    for family in ("density", "accel", "accel_drho"):
-        assert ops._tile(grid, params, None, family) == ops.tile_cells(
-            grid, params)
-        assert ops._tile(grid, params, 16, family) == 16
-    wide = grid._replace(capacity=96)
-    # past 64 slots the momentum families take tiles at any capacity, the
-    # density pass is the wide density kernel's
-    for family in ("accel", "accel_drho"):
-        assert ops._tile(wide, params, None, family) == ops.tile_cells(
-            wide, params)
-        assert ops._tile(wide, params, 16, family) == 16
-        for capacity in (64, 96, ops.MAX_WIDE_CAPACITY):
-            for bad in (0, ops.MAX_TILE + 1):
-                with pytest.raises(ValueError, match="tile must be 1 .. 16"):
-                    ops._tile(grid._replace(capacity=capacity), params, bad,
-                              family)
-    assert ops._tile(wide, params, None, "density") is None
-    with pytest.raises(ValueError, match="tile applies to the density"):
-        ops._tile(wide, params, 16, "density")
-    for bad in (0, ops.MAX_TILE + 1):
-        with pytest.raises(ValueError, match="tile must be 1 .. 16"):
-            ops._tile(grid, params, bad, "density")
+    for capacity in (24, 64, 96, ops.MAX_WIDE_CAPACITY):
+        at = grid._replace(capacity=capacity)
+        assert ops._tile(at, params, None) == ops.tile_cells(at, params)
+        for tile in range(1, ops.MAX_TILE + 1):
+            assert ops._tile(at, params, tile) == tile
+        for bad in (0, ops.MAX_TILE + 1):
+            with pytest.raises(ValueError, match="tile must be 1 .. 16"):
+                ops._tile(at, params, bad)

@@ -14,7 +14,7 @@ with ``--tiles`` the tile kernels at each forced tile size.  With
 ``--wide`` it times the single-tier roles past 64 slots instead
 (``density_wide``, ``accel_wide``, ``accel_drho_wide``) on the jittered
 1M dam break at each K of ``--ks`` (default 128), ``--tiles`` forcing
-the momentum roles' T and ``--no-bound`` skipping the bound (its pair
+each role's T and ``--no-bound`` skipping the bound (its pair
 count grows as K squared).  With ``--steps`` it times the 1M step of
 ``--layout`` (``spill``, ``wide``, ``periodic spill`` or ``periodic
 wide``; the periodic layouts on the 1M still box) instead, in both
@@ -67,8 +67,8 @@ def time_wide(args, dev, card, where, tiles):
                 tile)
 
         launches = {
-            "density": (1, lambda: ops._launch_density(
-                x, m, x, m, grid, params, WendlandC2, "self")),
+            "density": (1, lambda tile=None: ops._launch_density(
+                x, m, x, m, grid, params, WendlandC2, "self", tile)),
             "accel": (3, accel(None)),
             "accel_drho": (4, accel(cs.DELTA_SPH)),
         }
@@ -79,7 +79,7 @@ def time_wide(args, dev, card, where, tiles):
                 b, by, _, _ = cs.roofline(family, tier, tier, grid, params,
                                           WendlandC2, n_out)
                 bound = ", bound %.4f ms by %s" % (b, by)
-            extra = "" if family == "density" else "".join(
+            extra = "".join(
                 ", T=%d %.4f" % (t, cs.cuda_ms(lambda: kern(t), args.reps, 3))
                 for t in tiles)
             print("%s: %s_wide K=%d (%d live of %d slots): %.4f ms%s%s [%s]"

@@ -81,9 +81,9 @@ def build():
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-    density_wide = [
+    density_pairs = [
         p, p, p, p, p,  # xc, mc, xn, mn, out
-        i, i, i, i, i,  # nx, ny, nz, k, kind
+        i, i, i, i, i, i,  # nx, ny, nz, k, tile, kind
         f, f, f, f, f, f,  # inv2h, invh2, mfold, h, sigma, supp2
         p,  # stream
     ]
@@ -96,12 +96,8 @@ def _declare(lib):
         f, f, f, f,  # adrho, ddfold, eta2, rho_floor (n_out = 4)
         p,  # stream
     ]
-    # the two-tier density entry takes the same arguments plus the tile T
-    # after k
-    density_pairs = density_wide[:9] + [i] + density_wide[9:]
     for fn, argtypes in (
         (lib.tpgsd_density_pairs, density_pairs),
-        (lib.tpgsd_density_wide, density_wide),
         (lib.tpgsd_accel_pairs, accel_pairs),
     ):
         fn.argtypes = argtypes

@@ -9,13 +9,14 @@
 //   accel_drho_pairs <- _accel_drho_kernel_packed,
 //                       _accel_drho_kernel_packed_cross
 // Past 64 slots (the single tier at a worst-cell-proof capacity):
-//   density_wide     <- _density_kernel
-//   accel_wide       <- _accel_kernel       (accel_pairs_kernel<false, true>)
-//   accel_drho_wide  <- _accel_drho_kernel  (accel_pairs_kernel<true, true>)
-// The momentum roles are the instances of one template,
-// accel_pairs_kernel<kDrho, kWide>: kDrho adds the drho/dt sum, kWide
-// takes capacities past 64 slots.  Every kernel evaluates a pair through
-// the same two functions (density_pair, momentum_pair).
+//   density_wide     <- _density_kernel      (density_pairs_kernel<true>)
+//   accel_wide       <- _accel_kernel        (accel_pairs_kernel<false, true>)
+//   accel_drho_wide  <- _accel_drho_kernel   (accel_pairs_kernel<true, true>)
+// Every role is an instance of one of two templates, density_pairs_kernel
+// <kWide> and accel_pairs_kernel<kDrho, kWide>: kDrho adds the drho/dt
+// sum, kWide takes capacities past 64 slots.  Both are one tile walk
+// (walk_tile) and evaluate a pair through the same two functions
+// (density_pair, momentum_pair).
 // A self pass and a cross pass differ only in which tier holds the centres
 // and which holds the neighbours, so one kernel serves both: the caller
 // passes the centre tier and the neighbour tier.
@@ -82,14 +83,6 @@
 // counts, start table and centre list.  Staging is synchronous: other CTAs
 // of the SM (8 or more at 64 registers) hide its loads, and double-
 // buffering the raw ranges with cp.async measured slower.
-//
-// The wide density kernel (density_wide, K > 64) predates the tiles: one
-// warp owns a cell and walks its slots in groups of 32: a centre group
-// with no live slot writes zeros and is done after one vote; each
-// neighbour cell is read in chunks of 32 slots, a chunk with no live slot
-// costs one mask byte per lane and one ballot, and a live chunk is staged
-// in shared memory and its live slots alone are visited (the ballot's set
-// bits).  Shared memory per warp is one 32-slot chunk whatever K is.
 // Nothing of the TPU kernels' layout (128-lane padding, DMA windows,
 // [B, Kp, Kp] pair matrices, the factorised MXU reduction) carries over.
 //
@@ -174,16 +167,19 @@ __device__ __forceinline__ void density_pair(
 constexpr int kThreads = 32 * kWarps;  // threads per CTA, centres per round
 constexpr int kMaxTile = 16;           // cells per tile
 constexpr int kMaxRange = kMaxTile + 2;  // cells per staged id range
-constexpr int kMaxWideK = 1024;  // slots per cell the momentum tiles take
+constexpr int kMaxWideK = 1024;  // slots per cell the kWide tiles take
 // entries of the centre list: every centre slot of a tile up to 64 slots
 // a cell, a ring past it
 constexpr int kList = kMaxTile * kMaxK;
 // CTAs an SM must hold (__launch_bounds__), which caps the registers a
 // thread: at 64 the momentum kernels do not spill (the compiler's own
 // choice of 48 spilled 16-20 bytes); at 42 the density kernel takes 40
-// and runs 3% faster than at its own choice of 45.
+// and runs 3% faster than at its own choice of 45, but its kWide instance
+// spills 16 bytes there: at 51 it takes 48 and runs faster than at 42 or
+// at 64 (56 registers).
 constexpr int kTilesPerSM = 8;
 constexpr int kDensityTilesPerSM = 12;
+constexpr int kDensityWideTilesPerSM = 10;
 
 // Shared memory of a tile walk besides the staged planes (those are
 // dynamic: their size follows T and min(K, 64)).
@@ -484,8 +480,11 @@ __device__ __forceinline__ float sep2(float cx, float cy, float cz,
 // rho_i = mfold * sum_{27 cells} sum_j W'(r_ij) over live j, where W' is
 // t^4 (2q+1) for WendlandC2 (sigma folded into mfold) and the full cubic
 // spline W for kind 1 (mfold is then the mass).  One CTA a tile of T
-// cells; zero on dead centre slots.
-__global__ void __launch_bounds__(kThreads, kDensityTilesPerSM)
+// cells; zero on dead centre slots.  kWide: past 64 slots a cell
+// (density_wide).
+template <bool kWide>
+__global__ void __launch_bounds__(
+    kThreads, kWide ? kDensityWideTilesPerSM : kDensityTilesPerSM)
 density_pairs_kernel(const float* __restrict__ xc,
                      const uint8_t* __restrict__ mc,
                      const float* __restrict__ xn,
@@ -502,7 +501,7 @@ density_pairs_kernel(const float* __restrict__ xc,
   const long long base = (long long)c0 * g.k;
   const float* const src[kF] = {xn, xn + plane, xn + 2 * plane};
   float cx, cy, cz, acc;
-  walk_tile<kF, false, false>(
+  walk_tile<kF, false, kWide>(
       src, mc, mn, g, c0, T, s4, sh,
       [&](int s) { out[base + s] = 0.f; },
       [&](int s) {
@@ -657,92 +656,6 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
       });
 }
 
-// ---------------------------------------------------------------------------
-// The wide density kernel (K > 64): see the note at the top.
-// ---------------------------------------------------------------------------
-
-constexpr int kChunk = 32;  // slots per centre group and per staged chunk
-
-// Visit the 27 neighbour cells of `cell` in chunks of kChunk slots:
-// `chunk(nb, m, bits)` is called warp-uniformly for every chunk with a live
-// slot, with the chunk's first slot index nb (into a [C, K] plane), whether
-// this lane's slot is live (false past slot K) and the warp's live lanes.
-template <typename Chunk>
-__device__ __forceinline__ void for_live_chunks(
-    int cell, const Geometry& g, const uint8_t* __restrict__ mn, int lane,
-    Chunk chunk) {
-  int ix, iy, iz;
-  cell_coords(cell, g, ix, iy, iz);
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int jx = ix + dx;
-    if (jx < 0 || jx >= g.nx) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int jy = iy + dy;
-      if (jy < 0 || jy >= g.ny) continue;
-      for (int dz = -1; dz <= 1; ++dz) {
-        const int jz = iz + dz;
-        if (jz < 0 || jz >= g.nz) continue;
-        const long long nb = ((long long)(jx * g.ny + jy) * g.nz + jz) * g.k;
-        for (int n0 = 0; n0 < g.k; n0 += kChunk) {
-          const bool m = n0 + lane < g.k && mn[nb + n0 + lane] != 0;
-          const unsigned bits = __ballot_sync(kFull, m);
-          if (bits != 0u) chunk(nb + n0, m, bits);
-        }
-      }
-    }
-  }
-}
-
-// density_wide: the sum of density_pairs_kernel for any K.
-__global__ void __launch_bounds__(32 * kWarps)
-density_wide_kernel(const float* __restrict__ xc,
-                    const uint8_t* __restrict__ mc,
-                    const float* __restrict__ xn,
-                    const uint8_t* __restrict__ mn, float* __restrict__ out,
-                    Geometry g, int kind, float inv2h, float invh2,
-                    float mfold, float h, float sigma, float supp2) {
-  __shared__ float s_x[kWarps][3][kChunk];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ncell = g.nx * g.ny * g.nz;
-  const int cell = blockIdx.x * kWarps + warp;
-  if (cell >= ncell) return;  // warp-uniform
-  const long long plane = (long long)ncell * g.k;
-  const long long base = (long long)cell * g.k;
-
-  for (int c0 = 0; c0 < g.k; c0 += kChunk) {  // centre groups
-    const bool ok = c0 + lane < g.k;
-    const long long i = base + c0 + lane;
-    const bool live = ok && mc[i] != 0;
-    float acc = 0.f;
-    if (__any_sync(kFull, live)) {
-      const float cx = live ? xc[i] : 0.f;
-      const float cy = live ? xc[plane + i] : 0.f;
-      const float cz = live ? xc[2 * plane + i] : 0.f;
-      for_live_chunks(cell, g, mn, lane,
-                      [&](long long nb, bool m, unsigned bits) {
-        __syncwarp();  // the previous chunk has been read
-        if (m) {
-          s_x[warp][0][lane] = xn[nb + lane];
-          s_x[warp][1][lane] = xn[plane + nb + lane];
-          s_x[warp][2][lane] = xn[2 * plane + nb + lane];
-        }
-        __syncwarp();
-        for (; bits != 0u; bits &= bits - 1u) {
-          const int j = __ffs(bits) - 1;
-          density_pair(cx, cy, cz, s_x[warp][0][j], s_x[warp][1][j],
-                       s_x[warp][2][j], 1.f, kind, inv2h, invh2, h, sigma,
-                       supp2, acc);
-        }
-      });
-    }
-    if (ok) out[i] = live ? mfold * acc : 0.f;
-  }
-}
-
-inline int launch_blocks(int ncell) { return (ncell + kWarps - 1) / kWarps; }
-
 }  // namespace
 
 extern "C" {
@@ -751,20 +664,23 @@ extern "C" {
 // cudaGetLastError() (0 = launched).  Shapes and dtypes are checked by the
 // Python wrapper (tpgsd_torch/sph/ops.py).
 
-// `tile` is T, the cells per CTA of the two-tier kernels (1 .. 16).
+// `tile` is T, the cells per CTA (1 .. 16).  Any k up to 1024: the
+// two-tier roles and the single tier past 64 slots (density_wide).
 int tpgsd_density_pairs(const float* xc, const uint8_t* mc, const float* xn,
                         const uint8_t* mn, float* out, int nx, int ny, int nz,
                         int k, int tile, int kind, float inv2h, float invh2,
                         float mfold, float h, float sigma, float supp2,
                         void* stream) {
   const int ncell = nx * ny * nz;
-  if (ncell <= 0 || k <= 0 || k > kMaxK || tile < 1 || tile > kMaxTile) {
+  if (ncell <= 0 || k <= 0 || k > kMaxWideK || tile < 1 ||
+      tile > kMaxTile) {
     return (int)cudaErrorInvalidValue;
   }
   const Geometry g{nx, ny, nz, k};
-  density_pairs_kernel<<<(ncell + tile - 1) / tile, kThreads,
-                         tile_smem(3, tile, k),
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel =
+      k > kMaxK ? density_pairs_kernel<true> : density_pairs_kernel<false>;
+  kernel<<<(ncell + tile - 1) / tile, kThreads, tile_smem(3, tile, k),
+           static_cast<cudaStream_t>(stream)>>>(
       xc, mc, xn, mn, out, g, tile, kind, inv2h, invh2, mfold, h, sigma,
       supp2);
   return (int)cudaGetLastError();
@@ -797,21 +713,6 @@ int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
            static_cast<cudaStream_t>(stream)>>>(
       xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, tile, kind,
       inv2h, h, sigma, h2eps, cv, supp2, f);
-  return (int)cudaGetLastError();
-}
-
-// The wide density kernel: arguments as tpgsd_density_pairs without the
-// tile, any k >= 1 (the Python wrapper sends k > 64 here).
-int tpgsd_density_wide(const float* xc, const uint8_t* mc, const float* xn,
-                       const uint8_t* mn, float* out, int nx, int ny, int nz,
-                       int k, int kind, float inv2h, float invh2, float mfold,
-                       float h, float sigma, float supp2, void* stream) {
-  const int ncell = nx * ny * nz;
-  if (ncell <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const Geometry g{nx, ny, nz, k};
-  density_wide_kernel<<<launch_blocks(ncell), 32 * kWarps, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      xc, mc, xn, mn, out, g, kind, inv2h, invh2, mfold, h, sigma, supp2);
   return (int)cudaGetLastError();
 }
 

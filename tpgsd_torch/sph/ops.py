@@ -23,16 +23,14 @@ A self pass and a cross pass differ only in which tier holds the centres
 and which the neighbours, so each wrapper takes both tiers explicitly.
 The single-tier entry points :func:`density`, :func:`accel` and
 :func:`accel_drho` dispatch as the reference does: up to 64 slots per
-cell they launch the two-tier kernels in their self role.  Past it the
-momentum passes launch the wide instances of the same tile kernel
-(counted as ``accel_wide`` and ``accel_drho_wide``), whose staging
+cell they launch the two-tier kernels in their self role.  Past it they
+launch the wide instances of the same tile kernels (counted as
+``density_wide``, ``accel_wide`` and ``accel_drho_wide``), whose staging
 buffer is sized by a live-slot budget, not by K, and whose centre list
-is a ring; the density pass launches the wide density kernel,
-which walks a cell's slots in groups of 32 and skips the dead groups of
-a sparsely filled wide cell.
-What bounds the kernels on the H100 is the pair arithmetic and the L2
-re-reads of each neighbour cell; the designs are described at the top of
-the CUDA source.
+is a ring.
+What bounds the kernels on the H100 is the pair arithmetic in the self
+roles and the bytes of masks and zeros in the cross roles; the design is
+described at the top of the CUDA source.
 
 Periodic axes (``wrap_axes``) reach every kernel as a pre-shifted ghost-
 cell halo: the dense layout grows one ghost layer per wrapped axis, each
@@ -67,8 +65,8 @@ MAX_CAPACITY = 64
 #: cells per tile (one CTA of 128 threads) the tile kernels take
 MAX_TILE = 16
 #: slots per cell the single-tier kernels take past :data:`MAX_CAPACITY`
-#: (the momentum tile kernel and the wide density kernel); a cell list
-#: this wide would better be a finer grid
+#: (the wide instances of the tile kernels); a cell list this wide would
+#: better be a finer grid
 MAX_WIDE_CAPACITY = 1024
 
 #: kernel launches per role since the last :func:`reset_launch_counts`
@@ -233,19 +231,9 @@ def _role_key(family, grid, role):
     return "%s_%s" % (family, "wide" if grid.capacity > MAX_CAPACITY else role)
 
 
-def _tile(grid, params, tile, family):
-    """T of a tile launch of ``family``: :func:`tile_cells` unless
-    ``tile`` forces it (1 .. :data:`MAX_TILE`).  The momentum families
-    take tiles at any capacity; density past :data:`MAX_CAPACITY` slots
-    is the wide density kernel's (``None``), and a tile forced there
-    raises."""
-    if family == "density" and grid.capacity > MAX_CAPACITY:
-        if tile is not None:
-            raise ValueError(
-                "tile applies to the density kernel up to capacity %d; got "
-                "capacity %d" % (MAX_CAPACITY, grid.capacity)
-            )
-        return None
+def _tile(grid, params, tile):
+    """T of a tile launch: :func:`tile_cells` unless ``tile`` forces it
+    (1 .. :data:`MAX_TILE`), for every family at any capacity."""
     tile = tile_cells(grid, params) if tile is None else int(tile)
     if not 1 <= tile <= MAX_TILE:
         raise ValueError(
@@ -259,20 +247,17 @@ def tile_shared_bytes(family, grid, params, tile=None):
     (``"density"``, ``"accel"`` or ``"accel_drho"``) asks for on ``grid``
     at tile ``tile`` (:func:`tile_cells` by default), as the kernel
     library computes it for the launch: the staging buffer of (T + 2)
-    min(K, 64) particles, the same at any capacity past 64.  Density
-    past :data:`MAX_CAPACITY` slots has no tile launch and raises."""
-    t = _tile(grid, params, tile, family)
-    if t is None:
-        raise ValueError(
-            "no density tile launch past %d slots" % MAX_CAPACITY)
+    min(K, 64) particles, the same at any capacity past 64."""
+    t = _tile(grid, params, tile)
     return int(_build.load().tpgsd_tile_smem(
         int(family != "density"), t, grid.capacity))
 
 
 def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
-    """One launch of the density kernel -> ``[C, K]``: ``density_pairs``
-    (``tile`` cells per CTA, :func:`tile_cells` by default) up to
-    :data:`MAX_CAPACITY` slots, the wide density kernel past it."""
+    """One launch of the density tile kernel -> ``[C, K]``, counted as
+    ``density_<role>`` and past :data:`MAX_CAPACITY` slots as
+    ``density_wide``; ``tile`` cells per CTA (:func:`tile_cells` by
+    default) at any capacity."""
     lib = _build.load()
     _check_launch(grid, (xc, xn), (), (mc, mn))
     code = kernel_code(kernel)
@@ -281,16 +266,13 @@ def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
     supp2 = (kernel.support_scale * h) ** 2
     out = torch.empty_like(mc, dtype=torch.float32)
     nx, ny, nz = grid.dims
-    tile = _tile(grid, params, tile, "density")
+    tile = _tile(grid, params, tile)
     args = (xc.data_ptr(), mc.data_ptr(), xn.data_ptr(), mn.data_ptr(),
             out.data_ptr(), nx, ny, nz, grid.capacity)
     folds = (code, inv2h, invh2, mfold, h, kernel._sigma(h, params.dim), supp2)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if grid.capacity > MAX_CAPACITY:
-            rc = lib.tpgsd_density_wide(*args, *folds, stream)
-        else:
-            rc = lib.tpgsd_density_pairs(*args, tile, *folds, stream)
+        rc = lib.tpgsd_density_pairs(*args, tile, *folds, stream)
     key = _role_key("density", grid, role)
     _raise_on(lib, rc, key)
     launch_counts[key] += 1
@@ -318,7 +300,7 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
     n_out = 4 if drho else 3
     out = xc.new_empty((n_out,) + tuple(mc.shape))
     nx, ny, nz = grid.dims
-    tile = _tile(grid, params, tile, name)
+    tile = _tile(grid, params, tile)
     args = (xc.data_ptr(), vc.data_ptr(), rhoc.data_ptr(), ptc.data_ptr(),
             mc.data_ptr(), xn.data_ptr(), vn.data_ptr(), rhon.data_ptr(),
             ptn.data_ptr(), mn.data_ptr(), out.data_ptr(), n_out,
@@ -517,9 +499,8 @@ def density(dense_x, mask, grid, params, kernel=WendlandC2, wrap_axes=None):
     """Per-slot SPH density ``[C, K]`` of one tier (SoA positions ``[3,
     C, K]``, live mask ``[C(+1), K]``): 0 in dead slots.  ``wrap_axes``
     (3 bools) wraps these axes through a ghost-cell halo.  CPU tensors
-    take the plain pass; CUDA tensors launch ``density_pairs`` in its
-    self role up to 64 slots per cell and the wide density kernel past
-    it."""
+    take the plain pass; CUDA tensors launch the density tile kernel in
+    its self role, counted as ``density_wide`` past 64 slots per cell."""
     def pairs(tier, g):
         x, m = tier
         if _on_cpu(x, m):
