@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA pair kernels from ``tpgsd_torch/csrc`` (nvcc, first use),
+Builds the CUDA pair kernels from ``tpgsd_torch/csrc`` (nvcc, first use;
+the registers of every instance from ``ptxas -v``, those of the nine
+kernels' instances held to what they were before the option passes came),
 holds each of the nine kernel roles against its plain PyTorch version on
 the 1M-particle dam break (the two-tier roles at K = 24 and 32, the wide
 single-tier roles at K = 128, and at 100k particles K = 96, 256 and an
@@ -19,6 +21,15 @@ with their tile size T and shared memory; the tile kernels at K = 128
 against K = 32 on the same particles), and profiles the 1M steps
 (torch.profiler: the device time per layer and the device's idle share,
 from one trace each).
+The step's options run on the card too, through the pair passes that the
+reference runs in jnp (XSPH, riding the momentum kernel; the Akinci
+surface normals and force; the energy rate): each of their roles is held
+against its plain version (on the 1M dam break at K = 24 and 32, at 100k
+on the single tier at K = 128, on the periodic still box's ghost grid),
+the 1M dam break steps with ``xsph=0.5, surface_tension=0.05`` on both
+layouts in both modes with the dump, ``energy_rate`` runs at 1M, their
+kernel steps are held against the plain steps at 100k, and their roles
+and steps are timed.
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -30,6 +41,7 @@ entry per kernel role; the last line is the run's result:
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,6 +59,7 @@ from tpgsd_torch.sph import (
     CubicSpline,
     WendlandC2,
     dam_break,
+    energy_rate,
     init_density,
     make_step_fn,
     ops,
@@ -56,6 +69,7 @@ from tpgsd_torch.sph import (
 from tpgsd_torch.sph.cells import (
     build_cells,
     build_cells_spill,
+    gather_from_cells,
     scatter_to_cells_soa,
     wrap_axes,
 )
@@ -95,8 +109,44 @@ KERNELS = [
      "wide summation"),
     ("accel_drho (wide)", "accel_drho_wide", "tpgsd/sph/pallas_ops.py:391",
      "wide continuity"),
+    # the pair passes the reference runs in jnp, not in Pallas: "replaces"
+    # names the jnp pass (the energy pass's cross role is on no path)
+    ("accel_pairs<xsph> (self)", "accel_xsph_self",
+     "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "options summation"),
+    ("accel_pairs<xsph> (cross)", "accel_xsph_cross",
+     "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "options summation"),
+    ("accel_drho_pairs<xsph> (self)", "accel_drho_xsph_self",
+     "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "options continuity"),
+    ("accel_drho_pairs<xsph> (cross)", "accel_drho_xsph_cross",
+     "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "options continuity"),
+    ("accel<xsph> (wide)", "accel_xsph_wide",
+     "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "wide options summation"),
+    ("accel_drho<xsph> (wide)", "accel_drho_xsph_wide",
+     "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "wide options continuity"),
+    ("st_normals (self)", "st_normals_self",
+     "jnp: tpgsd/sph/step.py:260 _st_normals_blocks", "options summation"),
+    ("st_normals (cross)", "st_normals_cross",
+     "jnp: tpgsd/sph/step.py:260 _st_normals_blocks", "options summation"),
+    ("st_normals (wide)", "st_normals_wide",
+     "jnp: tpgsd/sph/step.py:260 _st_normals_blocks",
+     "wide options summation"),
+    ("st_force (self)", "st_force_self",
+     "jnp: tpgsd/sph/step.py:289 _st_force_blocks", "options summation"),
+    ("st_force (cross)", "st_force_cross",
+     "jnp: tpgsd/sph/step.py:289 _st_force_blocks", "options summation"),
+    ("st_force (wide)", "st_force_wide",
+     "jnp: tpgsd/sph/step.py:289 _st_force_blocks", "wide options summation"),
+    ("energy (self)", "energy_self",
+     "jnp: tpgsd/sph/step.py:482 _energy_blocks", "energy_rate"),
+    ("energy (wide)", "energy_wide",
+     "jnp: tpgsd/sph/step.py:482 _energy_blocks", "wide energy_rate"),
 ]
 SOURCE = "tpgsd_torch/csrc/sph_pairs.cu"
+#: the reference's own option settings (tests/test_spill.py)
+OPTIONS = {"xsph": 0.5, "surface_tension": 0.05}
+#: the pair passes the reference runs in jnp, by launch-count family
+OPTION_FAMILIES = ("accel_xsph", "accel_drho_xsph", "st_normals", "st_force",
+                   "energy")
 
 # Roofline of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores, at the full 700 W power limit.
@@ -107,8 +157,87 @@ F32_FLOP_PER_S = 67e12
 #: differences and r^2 8, sqrt 1, the kernel weight 8 and its sum 2
 #: (density); differences, r^2, sqrt and t^3 14, v_ij.x_ij 8, viscosity 6,
 #: the scale 4 and three sums 6 (accel); the continuity bracket with
-#: delta-SPH diffusion 7 and its sum 3 more (accel_drho).
-FLOP_PER_PAIR = {"density": 19, "accel": 38, "accel_drho": 48}
+#: delta-SPH diffusion 7 and its sum 3 more (accel_drho).  XSPH adds 16
+#: to a momentum pass (W from its t 5, the weight and its divide 2, three
+#: differences 3, three sums 6); the energy pass is the acceleration's 38
+#: less its three sums (6) plus one (2); the normals: differences and r^2
+#: 8, sqrt 1, t^3 5, the divide 1, three sums 6; the force: differences
+#: and r^2 8 and the support test 1, K_ij 2, the normal differences 3,
+#: six sums 12 on every candidate (its curvature term has no kernel
+#: weight), and sqrt 1, u 1, the spline 9 and its divide by max(r) 3 on
+#: the pairs within the support.
+FLOP_PER_PAIR = {"density": 19, "accel": 38, "accel_drho": 48,
+                 "accel_xsph": 54, "accel_drho_xsph": 64, "energy": 34,
+                 "st_normals": 21, "st_force": 14}
+#: float32 operations per candidate (live centre, live slot of its 27
+#: cells) of the passes that do work beyond the support
+FLOP_PER_CANDIDATE = {"st_force": 26}
+#: float32 input planes a pass reads of each slot
+PLANES_READ = {"density": 3, "st_normals": 4, "st_force": 7}
+#: output planes of each pass
+OUT_PLANES = {"density": 1, "accel": 3, "accel_drho": 4, "accel_xsph": 6,
+              "accel_drho_xsph": 7, "energy": 1, "st_normals": 3,
+              "st_force": 3}
+
+#: registers a thread of the nine kernels' instances took before the
+#: option passes came (ptxas -v on the card); phase 2 fails if they change
+EXISTING_REGISTERS = {
+    "density_pairs_kernel<false>": 40,
+    "density_pairs_kernel<true>": 48,
+    "accel_pairs_kernel<false, false, 0>": 56,
+    "accel_pairs_kernel<true, false, 0>": 56,
+    "accel_pairs_kernel<false, true, 0>": 64,
+    "accel_pairs_kernel<true, true, 0>": 64,
+}
+_INSTANCE = re.compile(
+    r"(density_pairs_kernel|accel_pairs_kernel|st_normals_kernel|"
+    r"st_force_kernel)I((?:L[bi]\d+E)+)E")
+
+
+def ptxas_instances(log):
+    """``{instance: (registers, spill store bytes)}`` of every kernel
+    instance in the compiler's ``-Xptxas -v`` output, instances named as
+    in the source (``accel_pairs_kernel<true, false, 1>``)."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            inst = _INSTANCE.search(m.group(1))
+            name, spill = None, 0
+            if inst:
+                args = re.findall(r"L([bi])(\d+)E", inst.group(2))
+                name = "%s<%s>" % (inst.group(1), ", ".join(
+                    ("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in args))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+            name = None
+    return out
+
+
+def phase_registers(log):
+    """Phase 2: the registers and spills of every instance; fails if an
+    instance of the nine kernels changed its registers, or any spills."""
+    inst = ptxas_instances(log)
+    for name in sorted(inst):
+        regs, spill = inst[name]
+        print("phase 2: %-40s %3d registers, %d bytes spill stores"
+              % (name, regs, spill))
+    missing = sorted(set(EXISTING_REGISTERS) - set(inst))
+    changed = {k: (inst[k][0], v) for k, v in EXISTING_REGISTERS.items()
+               if k in inst and inst[k][0] != v}
+    spills = sorted(k for k, (_, sp) in inst.items() if sp)
+    if missing or changed or spills or len(inst) != 16:
+        raise AssertionError(
+            "ptxas: %d instances; missing %s; registers changed (now, "
+            "before) %s; spilling %s" % (len(inst), missing, changed, spills))
+    print("phase 2: the nine kernels' instances kept their registers; no "
+          "instance spills")
 
 
 def card_line():
@@ -229,7 +358,8 @@ def phase_kernels_vs_plain(db, dev):
     # per role: the largest raw error of any output plane, the largest
     # error scaled by its plane's max, and the raw errors by plane group
     errs = {key: {"abs": 0.0, "scaled": 0.0, "planes": {}}
-            for _, key, _, _ in KERNELS if not key.endswith("_wide")}
+            for _, key, _, _ in KERNELS[:9] if not key.endswith("_wide")}
+    errs.update(option_errs())
     inputs = {}
     for k in (24, 32):
         s = spill_inputs(db, k, dev)
@@ -266,7 +396,7 @@ def phase_kernels_vs_plain(db, dev):
                 print("  accel_drho_spill %s delta_sph=%g max abs err: acc "
                       "%.6g, drho %.6g (max|drho| %.6g)"
                       % (kern.__name__, delta, e_acc, e_drho, drho_max))
-        hold_roles(errs, "K=%d" % k, grid, params, a, b)
+        hold_roles(errs, "K=%d" % k, grid, params, a, b, options=True)
         if k == 24:
             # the cubic-spline branch of the density and acceleration
             # kernels (WendlandC2 is the flagship's kernel)
@@ -282,6 +412,10 @@ def phase_kernels_vs_plain(db, dev):
                 print("  CubicSpline %s max abs err %.6g" % (fn.__name__, e))
     phase_periodic_roles(dev, errs)
     for key, rec in errs.items():
+        if key.endswith("_wide"):  # held in the wide phase
+            continue
+        if not rec["planes"]:
+            raise AssertionError("%s was not held" % key)
         print("phase 3: %s max abs err %s, largest scaled by its plane's max "
               "%.3e" % (key, ", ".join("%s %.6g" % kv for kv in
                                        sorted(rec["planes"].items())),
@@ -290,11 +424,12 @@ def phase_kernels_vs_plain(db, dev):
     return errs, inputs
 
 
-def hold_roles(errs, tag, grid, params, a, b):
+def hold_roles(errs, tag, grid, params, a, b, options=False):
     """Each two-tier role on tiers ``a`` and ``b`` (``(x, v, rho, p,
     mask)``, ``grid`` as the kernels receive it) against its plain
     version: self (A <- A) and cross (A <- B, B <- A), at the T of
-    ``ops.tile_cells``; updates the per-role records ``errs``."""
+    ``ops.tile_cells``, and with ``options`` those of the option passes
+    (:func:`hold_option_roles`); updates the per-role records ``errs``."""
     roles = [
         ("density_self", 1e-5, 1e-6,
          lambda c, n, cross: ops.density_pairs(
@@ -318,6 +453,91 @@ def hold_roles(errs, tag, grid, params, a, b):
             role = key.replace("self", "cross") if cross else key
             hold_planes(errs[role], "%s %s" % (role, tag), kern(cen, nbr, cross),
                         plain(cen, nbr), cen[4], rtol, atol)
+    if options:
+        hold_option_roles(errs, tag, grid, params, a, b)
+
+
+#: plane groups of the option passes' outputs
+OPTION_GROUPS = {"accel_xsph": ("acc",) * 3 + ("dv",) * 3,
+                 "accel_drho_xsph": ("acc",) * 3 + ("drho",) + ("dv",) * 3,
+                 "st_normals": ("n",) * 3, "st_force": ("acc",) * 3,
+                 "energy": ("du",)}
+
+
+def complete_normals(a, b, grid, params):
+    """``{id(tier): normals}`` of tiers ``a`` and ``b`` (``b`` may be
+    ``a``), each from its own and the other tier's neighbours, as the
+    force launches take them (computed by the normals kernel)."""
+    normals = {}
+    for t, other in ((a, b), (b, a)) if b is not a else ((a, a),):
+        n = ops.st_normals_pairs(t[0], t[4], t[0], t[2], t[4], grid, params)
+        if other is not t:
+            n = n + ops.st_normals_pairs(t[0], t[4], other[0], other[2],
+                                         other[4], grid, params, cross=True)
+        normals[id(t)] = n
+    return normals
+
+
+def option_errs():
+    """Empty error records of every role of the option passes."""
+    return {"%s_%s" % (f, r): {"abs": 0.0, "scaled": 0.0, "planes": {}}
+            for f in OPTION_FAMILIES for r in ("self", "cross", "wide")}
+
+
+def hold_option_roles(errs, tag, grid, params, a, b):
+    """Each role of the option passes on tiers ``a`` and ``b`` (``(x, v,
+    rho, p, mask)``) against its plain version at rtol 1e-4, atol 1e-5,
+    each plane scaled by its max: self (A <- A) and cross (A <- B,
+    B <- A), or the wide roles when ``grid`` is past 64 slots (``a`` is
+    ``b`` then).  The XSPH instances' acceleration (and drho/dt) planes
+    must be bit-identical to those of the instances without XSPH (held
+    by the nine roles), so only their XSPH planes meet the plain XSPH
+    pass; the force passes take the complete normals (both tiers')."""
+    wide = grid.capacity > ops.MAX_CAPACITY
+    roles = ([(a, a, False)] if wide or a is b
+             else [(a, a, False), (a, b, True), (b, a, True)])
+    normals = complete_normals(a, b, grid, params)
+    for cen, nbr, cross in roles:
+        if not bool(cen[4].any()):
+            continue
+        role = "wide" if wide else "cross" if cross else "self"
+        kw = {"cross": cross}
+        xsph_plain = ops.xsph_pairs_plain(*cen, *nbr, grid, params)
+        nc, nn = normals[id(cen)], normals[id(nbr)]
+        cases = [
+            ("accel_xsph", ops.accel_pairs(*cen, *nbr, grid, params,
+                                           xsph=True, **kw),
+             ops.accel_pairs(*cen, *nbr, grid, params, **kw), xsph_plain),
+            ("accel_drho_xsph", ops.accel_drho_pairs(
+                *cen, *nbr, grid, params, delta_sph=DELTA_SPH, xsph=True,
+                **kw),
+             ops.accel_drho_pairs(*cen, *nbr, grid, params,
+                                  delta_sph=DELTA_SPH, **kw), xsph_plain),
+            ("st_normals", ops.st_normals_pairs(
+                cen[0], cen[4], nbr[0], nbr[2], nbr[4], grid, params, **kw),
+             None, ops.st_normals_pairs_plain(
+                 cen[0], cen[4], nbr[0], nbr[2], nbr[4], grid, params)),
+            ("st_force", ops.st_force_pairs(
+                cen[0], nc, cen[2], cen[4], nbr[0], nn, nbr[2], nbr[4], grid,
+                params, OPTIONS["surface_tension"], **kw),
+             None, ops.st_force_pairs_plain(
+                 cen[0], nc, cen[2], cen[4], nbr[0], nn, nbr[2], nbr[4],
+                 grid, params, OPTIONS["surface_tension"])),
+            ("energy", ops.energy_pairs(*cen, *nbr, grid, params, **kw),
+             None, ops.energy_pairs_plain(*cen, *nbr, grid, params)),
+        ]
+        for family, got, base, want in cases:
+            key = "%s_%s" % (family, role)
+            groups = OPTION_GROUPS[family]
+            if base is not None:
+                n_base = base.shape[0]
+                if not torch.equal(got[:n_base], base):
+                    raise AssertionError(
+                        "%s %s: the XSPH instance changed the other planes"
+                        % (key, tag))
+                got, groups = got[n_base:], groups[n_base:]
+            hold_planes(errs[key], "%s %s" % (key, tag), got, want, cen[4],
+                        1e-4, 1e-5, groups)
 
 
 def periodic_roles_inputs(sc, grid, dev, seed=0):
@@ -368,8 +588,9 @@ def periodic_roles_inputs(sc, grid, dev, seed=0):
 def phase_periodic_roles(dev, errs):
     """Phase 3 (periodic): each two-tier role on the ghost tiers of the
     periodic workloads at their own grids, K and T: the 1M still box
-    (K from "auto", clamped to 24-64 as :func:`configuration` does) and
-    the 2-D Taylor-Green vortex of phase 4 (nz = 1, its own K)."""
+    (K from "auto", clamped to 24-64 as :func:`configuration` does; the
+    option passes' roles too) and the 2-D Taylor-Green vortex of phase 4
+    (nz = 1, its own K)."""
     box = still_box(n_side=N_BOX_1M, capacity="auto", device=dev)
     vortex = taylor_green(n_side=N_VORTEX, device=dev)
     for name, sc, grid in (
@@ -381,7 +602,7 @@ def phase_periodic_roles(dev, errs):
         g, a, b = s["grid"], s["a"], s["b"]
         tag = "%s ghost grid %s K=%d" % (name, "x".join(map(str, g.dims)),
                                          g.capacity)
-        hold_roles(errs, tag, g, sc.params, a, b)
+        hold_roles(errs, tag, g, sc.params, a, b, options=name == "still box")
         print("phase 3 (periodic): %s, N=%d, %d in the spill tier (%s; "
               "momentum %d B): every two-tier role held"
               % (tag, sc.n, s["spill"], tile_note("density", g, sc.params),
@@ -400,10 +621,11 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
-def hold_planes(rec, name, got, want, live, rtol, atol):
+def hold_planes(rec, name, got, want, live, rtol, atol, groups=None):
     """Every output plane of ``got`` against ``want`` on live slots, each
     scaled by its own max; dead slots must be exactly 0.  Updates the
-    role's error record ``rec``."""
+    role's error record ``rec``, by plane group (``groups``: the name of
+    each plane; by default rho, or acc and drho)."""
     if bool(got[..., ~live].any()):
         raise AssertionError("%s: nonzero output on a dead centre slot" % name)
     planes = [(got, want)] if got.dim() == 2 else zip(got, want)
@@ -413,7 +635,10 @@ def hold_planes(rec, name, got, want, live, rtol, atol):
                 raise AssertionError("%s: nonzero plane %d" % (name, i))
             continue
         e = check_scaled("%s plane %d" % (name, i), g, w, live, rtol, atol)
-        group = "rho" if got.dim() == 2 else "drho" if i == 3 else "acc"
+        if groups is not None:
+            group = groups[i]
+        else:
+            group = "rho" if got.dim() == 2 else "drho" if i == 3 else "acc"
         rec["abs"] = max(rec["abs"], e)
         rec["scaled"] = max(rec["scaled"], e / float(w[live].abs().max()))
         rec["planes"][group] = max(rec["planes"].get(group, 0.0), e)
@@ -450,6 +675,8 @@ def phase_wide_kernels_vs_plain(dev, card):
     times."""
     errs = {key: {"abs": 0.0, "scaled": 0.0, "planes": {}}
             for key in ("density_wide", "accel_wide", "accel_drho_wide")}
+    errs.update({k: v for k, v in option_errs().items()
+                 if k.endswith("_wide")})
     plain_ms = {}
     tier1m = None
     cases = [(N_1M, K_WIDE, False), (N_100K, 96, False), (N_100K, 256, False),
@@ -493,11 +720,25 @@ def phase_wide_kernels_vs_plain(dev, card):
                             want, m, 1e-4, 1e-5)
                 if full and kern is WendlandC2 and delta:
                     plain_ms["accel_drho_wide"] = ms
+        if n_side == N_100K and k == K_WIDE:
+            # the option passes' wide roles, on the arbitrary masks (at
+            # 100k: their plain passes at 1M take seconds each)
+            hold_option_roles(errs, tag, grid, params, tier, tier)
+            n_options = db.n
         print("%s: %d live slots of %d, %.1f%% of the cells past 32 slots; "
               "held" % (tag, int(m.sum()), m.numel(),
                         100.0 * float(m[:, 32:].any(dim=1).float().mean())))
     phase_periodic_wide_roles(dev, errs)
     for key, rec in errs.items():
+        if key not in plain_ms:  # an option pass's role
+            if not rec["planes"]:
+                raise AssertionError("%s was not held" % key)
+            print("phase 3 (wide): %s max abs err %s, largest scaled by its "
+                  "plane's max %.3e (N=%d, K=%d, arbitrary mask)"
+                  % (key, ", ".join("%s %.6g" % kv for kv in
+                                    sorted(rec["planes"].items())),
+                     rec["scaled"], n_options, K_WIDE))
+            continue
         print("phase 3 (wide): %s max abs err %s, largest scaled by its "
               "plane's max %.3e; plain pass %.1f ms [%s]"
               % (key, ", ".join("%s %.6g" % kv for kv in
@@ -560,25 +801,61 @@ PATHS = {
         "per_step": {"accel_drho_wide": 1},
         "seed": {"density_wide": 1},
     },
+    # with OPTIONS: XSPH rides the momentum launches; surface tension adds
+    # the normals and force passes (4 + 4 launches a step on two tiers)
+    "options summation": {
+        "chunks": ("position", "velocity", "density", "pressure", "slength"),
+        "per_step": {"density_self": 2, "density_cross": 2,
+                     "accel_xsph_self": 2, "accel_xsph_cross": 2,
+                     "st_normals_self": 2, "st_normals_cross": 2,
+                     "st_force_self": 2, "st_force_cross": 2},
+        "seed": {},
+        "steps": 10,
+    },
+    "options continuity": {
+        "chunks": ("position", "velocity", "density"),
+        "per_step": {"accel_drho_xsph_self": 2, "accel_drho_xsph_cross": 2,
+                     "st_normals_self": 2, "st_normals_cross": 2,
+                     "st_force_self": 2, "st_force_cross": 2},
+        "seed": {"density_self": 2, "density_cross": 2},
+        "steps": 10,
+    },
+    "wide options summation": {
+        "chunks": ("position", "velocity", "density", "pressure", "slength"),
+        "per_step": {"density_wide": 1, "accel_xsph_wide": 1,
+                     "st_normals_wide": 1, "st_force_wide": 1},
+        "seed": {},
+        "steps": 10,
+    },
+    "wide options continuity": {
+        "chunks": ("position", "velocity", "density"),
+        "per_step": {"accel_drho_xsph_wide": 1, "st_normals_wide": 1,
+                     "st_force_wide": 1},
+        "seed": {"density_wide": 1},
+        "steps": 10,
+    },
 }
 
 
 PATHS_MODES = ("summation", "continuity")
 
 
-def configuration(layout, n_side, dev, density_mode, plain=False):
+def configuration(layout, n_side, dev, density_mode, plain=False,
+                  options=None):
     """``(step, state)`` of one of the driven configurations through the
     entry points a user calls, with the "auto" policies (``plain``: the
     plain pair passes instead: on the single tier, which for the periodic
     two-tier layout is the slot-identical tier of twice the capacity; for
-    the flagship the plain spill ops on its own grid):
+    the flagship the plain spill ops on its own grid; ``options``: more
+    ``make_step_fn`` arguments, the flagship then built as ``entry``
+    builds it):
 
     * ``"spill"``: the flagship, dam break on the two-tier layout;
     * ``"wide"``: the dam break on the single tier at K = 128;
     * ``"periodic spill"`` / ``"periodic wide"``: the periodic still box,
       capacity from ``"auto"`` clamped to 24-64 as ``entry`` does, or 128.
     """
-    if layout == "spill" and not plain:
+    if layout == "spill" and not plain and not options:
         step, (state,) = entry(n_side=n_side, device=dev,
                                density_mode=density_mode)
         return step, state
@@ -602,7 +879,8 @@ def configuration(layout, n_side, dev, density_mode, plain=False):
         if layout == "periodic spill":
             grid = grid._replace(capacity=2 * grid.capacity)
     step = make_step_fn(grid, sc.params, periodic=periodic,
-                        density_mode=density_mode, device=dev, **kw)
+                        density_mode=density_mode, device=dev, **kw,
+                        **(options or {}))
     want = {"use_kernels": not plain,
             "spill": layout == "spill" or not (plain or wide),
             "density_mode": density_mode}
@@ -624,9 +902,11 @@ def phase_main_path(dev, card, params, path):
     tag = "phase 4 (%s)" % path
     density_mode = path.split()[-1]
     layout = "wide" if path.startswith("wide") else "spill"
+    options = OPTIONS if "options" in path else None
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    step, state = configuration(layout, N_1M, dev, density_mode)
+    step, state = configuration(layout, N_1M, dev, density_mode,
+                                options=options)
     want = {"use_kernels": True, "spill": layout == "spill",
             "density_mode": density_mode}
     if step.resolved != want:
@@ -635,7 +915,7 @@ def phase_main_path(dev, card, params, path):
     if n != N_1M_PARTICLES:
         raise AssertionError("1M dam break has %d particles" % n)
     slength = torch.full((n,), params.h, device=dev)
-    n_steps, every = 20, 5
+    n_steps, every = path_of.get("steps", 20), 5
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dam_break.gsd")
@@ -683,7 +963,8 @@ def phase_main_path(dev, card, params, path):
                     "%s launched %d times in %d steps (expected %d)"
                     % (key, value, n_steps, expected)
                 )
-        print("%s: launch counts %s" % (tag, json.dumps(counts)))
+        print("%s: launch counts %s (every other role 0)" % (
+            tag, json.dumps({k: v for k, v in counts.items() if v})))
 
         with tpgsd_torch.hoomd.open(path, mode="r") as traj:
             if len(traj) != n_steps // every:
@@ -712,13 +993,78 @@ def phase_main_path(dev, card, params, path):
     return counts
 
 
+def moving_state(state, dev, seed=5, scale=0.1):
+    """``state`` with seeded N(0, scale^2) velocities added."""
+    rng = np.random.default_rng(seed)
+    dv = scale * rng.standard_normal(tuple(state.v.shape)).astype(np.float32)
+    return state._replace(v=state.v + torch.from_numpy(dv).to(dev))
+
+
+def energy_rate_plain(state, grid, params):
+    """``energy_rate`` through the plain pair passes on the same device:
+    the single tier, summation density floored at 0.1 rho0, the energy
+    pass."""
+    c = grid.n_cells
+    cells = build_cells(state.x, grid)
+    xv = scatter_to_cells_soa(torch.cat([state.x, state.v], -1), cells, grid)
+    m = cells.mask[:c]
+    rho = finish_density(ops.density_plain(xv[:3], m, grid, params), m, params)
+    du = ops.energy_plain(xv[:3], xv[3:], *rho, m, grid, params)
+    return gather_from_cells(torch.cat([du, du.new_zeros((1, du.shape[1]))]),
+                             cells, grid)
+
+
+def phase_energy_rate(dev, card):
+    """Phase 4 (energy_rate): ``energy_rate`` of the 1M dam break with
+    seeded N(0, 0.01) velocities on the flagship's grid (K = 32: the self
+    roles) and on the single tier at K = 128 (the wide roles): finite,
+    ``[N]``, its launches counted exactly (one density and one energy
+    launch); at K = 32 it is held against the plain passes (rtol 1e-4,
+    atol 1e-5 scaled).  Returns the launch counts by path and the
+    device milliseconds of each (CUDA events)."""
+    counts, ms = {}, {}
+    for path, capacity in (("energy_rate", None), ("wide energy_rate", K_WIDE)):
+        db = dam_break(n_side=N_1M, capacity=capacity or "auto",
+                       capacity_headroom=1.15, device=dev)
+        grid = db.grid
+        if capacity is None:
+            grid = grid._replace(capacity=min(max(grid.capacity, 24), 64))
+        state = moving_state(db.state, dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        du = energy_rate(state, grid, db.params)
+        torch.cuda.synchronize()
+        counts[path] = {k: v for k, v in ops.launch_counts.items() if v}
+        role = "wide" if capacity else "self"
+        want = {"density_" + role: 1, "energy_" + role: 1}
+        if counts[path] != want:
+            raise AssertionError("%s launched %r, expected %r"
+                                 % (path, counts[path], want))
+        if du.shape != (db.n,) or not bool(torch.isfinite(du).all()):
+            raise AssertionError("%s: malformed or non-finite du/dt" % path)
+        msg = ""
+        if capacity is None:
+            everything = torch.ones_like(du, dtype=torch.bool)
+            e = check_scaled("energy_rate K=%d" % grid.capacity, du,
+                             energy_rate_plain(state, grid, db.params),
+                             everything, 1e-4, 1e-5)
+            msg = ", held against the plain passes (max abs err %.3g)" % e
+        ms[path] = cuda_ms(lambda: energy_rate(state, grid, db.params), 10, 2)
+        print("phase 4 (%s): N=%d, K=%d, launches %s, du/dt finite (max "
+              "|du/dt| %.4g)%s; %.4f ms a call [%s]"
+              % (path, db.n, grid.capacity, json.dumps(counts[path]),
+                 float(du.abs().max()), msg, ms[path], card))
+        del db, state, du
+    return counts, ms
+
+
 #: slack of the carried-density comparison for the rounding of rho near
 #: 1000 to float32: two units in the last place at rho >= 1024
 RHO_ROUNDING = 2.5e-4
 
 
 def phase_kernel_vs_plain_step(dev, density_mode, layout="spill",
-                               n_side=N_100K):
+                               n_side=N_100K, options=None):
     """Phase 5: one step of the kernel path of a ``configuration``
     against its plain path at 100k particles (64k in the periodic box),
     from a state 10 kernel steps into the run with seeded
@@ -728,9 +1074,12 @@ def phase_kernel_vs_plain_step(dev, density_mode, layout="spill",
     atol 1e-5, plus the rounding of rho itself): a step whose drho/dt was
     zero, or lacked a term, would pass a tolerance relative to rho.  The
     periodic kernel steps take the ghost halo, their plain step the
-    wrapped neighbour table and the minimum image."""
-    step_k, state = configuration(layout, n_side, dev, density_mode)
-    step_p, _ = configuration(layout, n_side, dev, density_mode, plain=True)
+    wrapped neighbour table and the minimum image.  ``options``: more
+    ``make_step_fn`` arguments for both steps (XSPH, surface tension)."""
+    step_k, state = configuration(layout, n_side, dev, density_mode,
+                                  options=options)
+    step_p, _ = configuration(layout, n_side, dev, density_mode, plain=True,
+                              options=options)
     for _ in range(10):
         state, _aux = step_k(state)
     rng = np.random.default_rng(5)
@@ -764,10 +1113,12 @@ def phase_kernel_vs_plain_step(dev, density_mode, layout="spill",
         everything = torch.ones_like(rho_p, dtype=torch.bool)
         e = check_scaled("100k step rho", rho_k, rho_p, everything, 1e-5, 1e-6)
         rho_tol = "rtol 1e-5 atol 1e-6 scaled"
-    print("phase 5 (%s %s): kernel path vs plain path at N=%d: positions "
+    print("phase 5 (%s %s%s): kernel path vs plain path at N=%d: positions "
           "within rtol 1e-5 atol 1e-6 (max abs %.3g), rho within %s (max abs "
-          "err %.3g)" % (layout, density_mode, state.x.shape[0],
-                     float((sk.x - sp.x).abs().max()), rho_tol, e))
+          "err %.3g)" % (layout, density_mode,
+                         " with %s" % json.dumps(options) if options else "",
+                         state.x.shape[0], float((sk.x - sp.x).abs().max()),
+                         rho_tol, e))
     return step_k, step_p, state
 
 
@@ -864,12 +1215,21 @@ def count_pairs(cen, nbr_tier, grid, params, kernel):
     xn_s = _with_sentinel_cell(xn, 0.0)
     mn_s = _with_sentinel_cell(mn, False)
     total = 0
-    for c0, c1 in _cell_blocks(c, k):
-        nb = nbr[c0:c1]
-        d = xc[:, c0:c1, :, None] - _gather_nbr(xn_s, nb)
+    for cells in _cell_blocks(mc):
+        nb = nbr[cells]
+        d = xc[:, cells, :, None] - _gather_nbr(xn_s, nb)
         near = torch.sum(d * d, dim=0) < supp2
-        total += int((near & _gather_nbr(mn_s, nb) & mc[c0:c1, :, None]).sum())
+        total += int((near & _gather_nbr(mn_s, nb) & mc[cells, :, None]).sum())
     return total
+
+
+def count_candidates(cen, nbr_tier, grid):
+    """Pairs (live centre, live neighbour slot of its 27 neighbour cells),
+    within the support or not."""
+    mc, mn = cen[4], nbr_tier[4]
+    nbr = neighbor_index(grid, mc.device)  # [C, 27], sentinel C
+    live = torch.cat([mn.sum(dim=1), mn.new_zeros((1,), dtype=torch.long)])
+    return int((mc.sum(dim=1) * live[nbr].sum(dim=1)).sum())
 
 
 def needed_slots(cen_mask, nbr_mask, grid):
@@ -897,11 +1257,14 @@ def roofline(family, cen, nbr_tier, grid, params, kernel, n_out_planes):
     slots included), over the HBM bandwidth; against the float32
     operations of the pairs within the support over the float32 peak."""
     c, k = cen[4].shape
-    planes = 3 if family == "density" else 8  # f32 planes per tier
+    planes = PLANES_READ.get(family, 8)  # f32 planes per tier
     tiers = 1 if nbr_tier is cen else 2  # a self pass reads its tier once
     n_bytes = (4 * planes * needed_slots(cen[4], nbr_tier[4], grid)
                + c * k * (tiers + 4 * n_out_planes))
     flop = FLOP_PER_PAIR[family] * count_pairs(cen, nbr_tier, grid, params, kernel)
+    if family in FLOP_PER_CANDIDATE:
+        flop += FLOP_PER_CANDIDATE[family] * count_candidates(cen, nbr_tier,
+                                                              grid)
     t_bytes, t_flop = n_bytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
     by = "bytes" if t_bytes >= t_flop else "operations"
     return 1e3 * max(t_bytes, t_flop), by, n_bytes, flop
@@ -919,21 +1282,23 @@ def widened(tier, k, params):
             pad(m, False))
 
 
-def pair_passes(a, b, grid, params):
+def pair_passes(a, b, grid, params, options=True):
     """``family -> (output planes, kernel(cen, nbr, role, tile=None),
     plain(cen, nbr))`` for tiers ``(x, v, rho, p, mask)``; the kernels are
     launched as the two-tier entry points launch them, on tiers whose
     pressure plane is folded beforehand (``tile`` forces the cells per CTA
-    of the tile kernels)."""
+    of the tile kernels).  ``options`` adds the option passes' families;
+    the force passes take each tier's complete normals (computed here by
+    the normals kernel)."""
     folded = {id(t): t[:3] + (ops.pressure_plane(t[2], t[3], params),) + t[4:]
               for t in (a, b)}
 
-    def accel(delta_sph):
+    def accel(delta_sph, extra=None):
         return lambda c, n, role, tile=None: ops._launch_accel(
             *folded[id(c)], *folded[id(n)], grid, params, WendlandC2, role,
-            delta_sph, tile)
+            delta_sph, tile, extra)
 
-    return {
+    passes = {
         "density": (
             1,
             lambda c, n, role, tile=None: ops._launch_density(
@@ -948,6 +1313,39 @@ def pair_passes(a, b, grid, params):
             lambda c, n: ops.accel_drho_pairs_plain(
                 *c, *n, grid, params, delta_sph=DELTA_SPH)),
     }
+    if not options:
+        return passes
+    normals = complete_normals(a, b, grid, params)
+    gamma = OPTIONS["surface_tension"]
+    passes.update({
+        "accel_xsph": (
+            6, accel(None, "xsph"),
+            lambda c, n: ops.accel_pairs_plain(*c, *n, grid, params,
+                                               xsph=True)),
+        "accel_drho_xsph": (
+            7, accel(DELTA_SPH, "xsph"),
+            lambda c, n: ops.accel_drho_pairs_plain(
+                *c, *n, grid, params, delta_sph=DELTA_SPH, xsph=True)),
+        "st_normals": (
+            3,
+            lambda c, n, role, tile=None: ops._launch_st_normals(
+                c[0], c[4], n[0], n[2], n[4], grid, params, WendlandC2,
+                role, tile),
+            lambda c, n: ops.st_normals_pairs_plain(
+                c[0], c[4], n[0], n[2], n[4], grid, params)),
+        "st_force": (
+            3,
+            lambda c, n, role, tile=None: ops._launch_st_force(
+                c[0], normals[id(c)], c[2], c[4], n[0], normals[id(n)], n[2],
+                n[4], grid, params, WendlandC2, gamma, role, tile),
+            lambda c, n: ops.st_force_pairs_plain(
+                c[0], normals[id(c)], c[2], c[4], n[0], normals[id(n)], n[2],
+                n[4], grid, params, gamma)),
+        "energy": (
+            1, accel(None, "energy"),
+            lambda c, n: ops.energy_pairs_plain(*c, *n, grid, params)),
+    })
+    return passes
 
 
 def tile_note(family, grid, params):
@@ -996,7 +1394,10 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
     """Phase 6: step and kernel times on the card (CUDA events), and each
     kernel role's roofline bound on the same inputs (the flagship's K =
     32 and, with the spill tier occupied, K = 24; the wide roles on the
-    single tier at K = 128, ``wide`` = its tier and plain passes' times)."""
+    single tier at K = 128, ``wide`` = its tier and plain passes' times).
+    The 1M steps with the options on are timed beside the same steps
+    without them."""
+    base_ms = {}
     for mode, (step_k100, step_p100, state100) in steps100.items():
         n100 = state100.x.shape[0]
         k100 = step_ms(step_k100, state100, 20, 3)
@@ -1021,6 +1422,7 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
         else:
             msg += ", plain path not measured (estimated %.0f s > 60 s)" % est
         print(msg + " [%s]" % card)
+        base_ms[("spill", mode)] = k1m
         del step_k1m, state1m
 
     # each kernel role at the main paths' shapes (K = 32, centres in the
@@ -1029,9 +1431,12 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
     grid, a, b = inputs32["grid"], inputs32["a"], inputs32["b"]
     times = {}
     for family, (n_out, kern, plain) in pair_passes(a, b, grid, params).items():
+        option = family in OPTION_FAMILIES
         for role, nbr_tier in (("self", a), ("cross", b)):
             kms = cuda_ms(lambda: kern(a, nbr_tier, role), 20, 3)
-            pms = cuda_ms(lambda: plain(a, nbr_tier), 3, 1)
+            # an option pass's plain version runs twice (seconds each)
+            pms = cuda_ms(lambda: plain(a, nbr_tier), *((1, 1) if option
+                                                          else (3, 1)))
             bound_ms, by, n_bytes, flop = roofline(
                 family, a, nbr_tier, grid, params, WendlandC2, n_out)
             key = "%s_%s" % (family, role)
@@ -1039,10 +1444,11 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
                           "bound_by": by}
             print("phase 6: %s at N=%d, K=%d (centres A; %s): kernel %.4f "
                   "ms, plain %.4f ms, bound %.4f ms by %s (%.4g bytes, %.4g "
-                  "flop; kernel at %.1f%% of the bound's rate) [%s]"
+                  "flop; kernel at %.1f%% of the bound's rate)%s [%s]"
                   % (key, N_1M_PARTICLES, grid.capacity,
                      tile_note(family, grid, params), kms, pms, bound_ms, by,
-                     n_bytes, flop, 100.0 * bound_ms / kms, card))
+                     n_bytes, flop, 100.0 * bound_ms / kms,
+                     launches_note(key), card))
 
     # the same kernels at K = 24, where the spill tier is occupied: every
     # pass of the two-tier sums (centres <- neighbours)
@@ -1065,45 +1471,45 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
                      100.0 * bound_ms / kms, card))
 
     # the wide roles at the wide main paths' shapes (the single tier at
-    # K = 128): the last three rows of the ``kernels`` line
+    # K = 128): the wide rows of the ``kernels`` line.  An option pass's
+    # plain version runs once here, and the kernel is held against it.
     grid_w, params_w, tier = wide["tier"]
-    folded = (tier[:3] + (ops.pressure_plane(tier[2], tier[3], params_w),)
-              + tier[4:])
-    launches = {
-        "density": (1, lambda: ops._launch_density(
-            tier[0], tier[4], tier[0], tier[4], grid_w, params_w, WendlandC2,
-            "self")),
-        "accel": (3, lambda: ops._launch_accel(
-            *folded, *folded, grid_w, params_w, WendlandC2, "self")),
-        "accel_drho": (4, lambda: ops._launch_accel(
-            *folded, *folded, grid_w, params_w, WendlandC2, "self",
-            DELTA_SPH)),
-    }
-    for family, (n_out, kern) in launches.items():
+    passes_w = pair_passes(tier, tier, grid_w, params_w)
+    for family, (n_out, kern, plain) in passes_w.items():
         key = family + "_wide"
-        kms = cuda_ms(kern, 20, 3)
+        kms = cuda_ms(lambda: kern(tier, tier, "self"), 20, 3)
+        if family in OPTION_FAMILIES:
+            want, pms = timed(lambda: plain(tier, tier))
+            got = kern(tier, tier, "self")
+            hold_planes({"abs": 0.0, "scaled": 0.0, "planes": {}},
+                        "%s N=%d K=%d" % (key, N_1M_PARTICLES, K_WIDE), got,
+                        want, tier[4], 1e-4, 1e-5, OPTION_GROUPS[family])
+            del want, got
+        else:
+            pms = wide["plain_ms"][key]
         bound_ms, by, n_bytes, flop = roofline(
             family, tier, tier, grid_w, params_w, WendlandC2, n_out)
-        times[key] = {"ms": kms, "plain_ms": wide["plain_ms"][key],
-                      "bound_ms": bound_ms, "bound_by": by}
+        times[key] = {"ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                      "bound_by": by}
         print("phase 6: %s at N=%d, K=%d (single tier; %s): kernel %.4f ms, "
               "plain %.4f ms, bound %.4f ms by %s (%.4g bytes, %.4g flop; "
               "kernel at %.1f%% of the bound's rate; %.2f times the K=32 self "
-              "role) [%s]"
+              "role)%s [%s]"
               % (key, N_1M_PARTICLES, grid_w.capacity,
-                 tile_note(family, grid_w, params_w), kms,
-                 wide["plain_ms"][key], bound_ms, by, n_bytes, flop,
-                 100.0 * bound_ms / kms, kms / times[family + "_self"]["ms"],
+                 tile_note(family, grid_w, params_w), kms, pms, bound_ms, by,
+                 n_bytes, flop, 100.0 * bound_ms / kms,
+                 kms / times[family + "_self"]["ms"], launches_note(key),
                  card))
+    del passes_w
 
     # the tile kernels past 64 slots: the same particles in the first 32
     # of K_WIDE slots (the spill tier is empty at K = 32, so the K = 32
     # tier holds every particle), held to the K = 32 launch
     grid, a = inputs32["grid"], inputs32["a"]
-    passes = pair_passes(a, a, grid, params)
+    passes = pair_passes(a, a, grid, params, options=False)
     wide_a = widened(a, K_WIDE, params)
     grid_k = grid._replace(capacity=K_WIDE)
-    passes_k = pair_passes(wide_a, wide_a, grid_k, params)
+    passes_k = pair_passes(wide_a, wide_a, grid_k, params, options=False)
     for family, rtol, atol in (("density", 1e-5, 1e-6),
                                ("accel", 1e-4, 1e-5),
                                ("accel_drho", 1e-4, 1e-5)):
@@ -1139,6 +1545,8 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
                 step_p, _ = configuration("wide", n_side, dev, mode, plain=True)
                 _, pms = timed(lambda: step_p(state))
                 msg += ", plain path %.1f ms/step (one step)" % pms
+            else:
+                base_ms[("wide", mode)] = kms
             print(msg + " [%s]" % card)
             del step, state
     for layout, mode in (("periodic spill", "summation"),
@@ -1162,13 +1570,33 @@ def phase_times(dev, card, params, steps100, inputs24, inputs32, wide):
                  sc_grid.capacity, kms, n / kms * 1e3, gms, 100.0 * gms / kms,
                  card))
         del step, state
+    for (layout, mode), base in base_ms.items():
+        step, state = configuration(layout, N_1M, dev, mode, options=OPTIONS)
+        n = state.x.shape[0]
+        kms = step_ms(step, state, 20, 3)
+        print("phase 6 (%s %s with %s): N=%d kernel path %.4f ms/step (%.4g "
+              "particle-steps/s), %.4f ms/step more than without the options "
+              "(%.4f) [%s]"
+              % (layout, mode, json.dumps(OPTIONS), n, kms, n / kms * 1e3,
+                 kms - base, base, card))
+        del step, state
     return times
+
+
+def launches_note(key):
+    """``; N launches a step on the <path> path`` of a role."""
+    for _, k, _, path in KERNELS:
+        if k == key and path in PATHS:
+            return "; %d launches a step on the %s path" % (
+                PATHS[path]["per_step"].get(key, 0), path)
+    return ""
 
 
 #: layer groups of the profile, by a fragment of the device kernel's name
 #: (first match wins; the rest is elementwise: EOS, integrate, masks)
 PROFILE_GROUPS = [
-    ("pair kernels", ("_pairs_kernel",)),
+    ("pair kernels",
+     ("_pairs_kernel", "st_normals_kernel", "st_force_kernel")),
     ("cummax scan (cell build)", ("scan_innermost_dim_with_indices",)),
     ("radix sort (cell build)", ("RadixSort",)),
     ("cat copies", ("CatArray",)),
@@ -1193,9 +1621,9 @@ def _union_us(spans):
 
 
 def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
-                  warmup=5):
+                  warmup=5, options=None):
     """Phase 7: one torch.profiler trace of ``steps`` steps of a
-    ``configuration``.
+    ``configuration`` (``options`` as there).
     The device busy time (union of the device activity) and the wall
     time both come from that trace: wall is the span of a host region
     that ends with a device sync.  The profiler slows the host side, so
@@ -1203,7 +1631,8 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    step, state = configuration(layout, n_side, dev, density_mode)
+    step, state = configuration(layout, n_side, dev, density_mode,
+                                options=options)
     n = state.x.shape[0]
     for _ in range(warmup):
         state, _aux = step(state)
@@ -1230,11 +1659,13 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
     busy = _union_us([(s, e) for s, e in inside if e > s])
     wall = t1 - t0
     outside = sum(1 for s, e in inside if e <= s)
-    print("phase 7 (%s %s): N=%d profiled %d steps: wall %.4f ms/step, device "
-          "busy %.4f ms/step, idle share %.4f (%d device events outside the "
-          "region) [%s]" % (layout, density_mode, n, steps, wall / steps / 1e3,
-                            busy / steps / 1e3, 1.0 - busy / wall, outside,
-                            card))
+    print("phase 7 (%s %s%s): N=%d profiled %d steps: wall %.4f ms/step, "
+          "device busy %.4f ms/step, idle share %.4f (%d device events "
+          "outside the region) [%s]"
+          % (layout, density_mode,
+             " with %s" % json.dumps(options) if options else "", n, steps,
+             wall / steps / 1e3, busy / steps / 1e3, 1.0 - busy / wall,
+             outside, card))
     groups = {}
     for e in device:
         g = next((name for name, keys in PROFILE_GROUPS
@@ -1277,11 +1708,7 @@ def main():
     _build.load()
     print("phase 2: kernels built and loaded in %.2f s: %s" % (
         time.perf_counter() - t0, _build.library_path().name))
-    log = _build.library_path().with_suffix(".so.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("  ptxas: " + line.strip())
+    phase_registers(_build.library_path().with_suffix(".so.log").read_text())
 
     db = dam_break(n_side=N_1M, capacity="auto", capacity_headroom=1.15,
                    device=dev)
@@ -1293,6 +1720,7 @@ def main():
     errs_wide, tier_wide, plain_ms_wide = phase_wide_kernels_vs_plain(dev, card)
     errs.update(errs_wide)
     counts = {path: phase_main_path(dev, card, params, path) for path in PATHS}
+    counts.update(phase_energy_rate(dev, card)[0])
     phase_periodic(dev, card)
     steps100 = {mode: phase_kernel_vs_plain_step(dev, mode)
                 for mode in PATHS_MODES}
@@ -1300,12 +1728,18 @@ def main():
         phase_kernel_vs_plain_step(dev, mode, "wide")
         phase_kernel_vs_plain_step(dev, mode, "periodic spill", N_BOX_64K)
     phase_kernel_vs_plain_step(dev, "summation", "periodic wide", N_BOX_64K)
+    for mode in PATHS_MODES:
+        for layout, n_side in (("spill", N_100K), ("wide", N_100K),
+                               ("periodic spill", N_BOX_64K)):
+            phase_kernel_vs_plain_step(dev, mode, layout, n_side, OPTIONS)
     times = phase_times(dev, card, params, steps100, inputs[24], inputs[32],
                         {"tier": tier_wide, "plain_ms": plain_ms_wide})
     del steps100, inputs, tier_wide
     for layout, mode in (("spill", "summation"), ("spill", "continuity"),
                          ("wide", "summation"), ("wide", "continuity")):
         phase_profile(dev, card, layout, N_1M, mode)
+    for mode in PATHS_MODES:
+        phase_profile(dev, card, "spill", N_1M, mode, options=OPTIONS)
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"

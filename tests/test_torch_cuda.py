@@ -26,6 +26,7 @@ from tpgsd_torch.sph import (
     SPHParams,
     SPHState,
     dam_break,
+    energy_rate,
     init_density,
     make_grid,
     make_step_fn,
@@ -65,10 +66,11 @@ def _scaled_close(got, want, live, rtol, atol):
     numpy.testing.assert_allclose(got / scale, want / scale, rtol=rtol, atol=atol)
 
 
-def _spill_tiers(dev, seed=3):
-    """Both tiers of a jittered dam break at K = 24 (spill tier occupied)
-    with N(0, 1) velocities, plus finished density and pressure."""
-    db = dam_break(n_side=10, capacity=K, device="cpu")
+def _spill_tiers(dev, seed=3, k=K):
+    """Both tiers of a jittered dam break at K = 24 (spill tier occupied;
+    or at capacity ``k``) with N(0, 1) velocities, plus finished density
+    and pressure."""
+    db = dam_break(n_side=10, capacity=k, device="cpu")
     rng = numpy.random.default_rng(seed)
     x = db.state.x.numpy()
     x = x + (0.05 * db.params.h / 1.3) * rng.standard_normal(x.shape)
@@ -76,12 +78,12 @@ def _spill_tiers(dev, seed=3):
     xv = torch.from_numpy(numpy.concatenate([x, v], 1).astype(numpy.float32))
     xv = xv.to(dev)
     grid, params = db.grid, db.params
-    cells, sp = build_cells_spill(xv[:, :3].contiguous(), grid, K)
+    cells, sp = build_cells_spill(xv[:, :3].contiguous(), grid, k)
     a = scatter_to_cells_soa(xv, cells, grid)
-    b = scatter_to_cells_soa(xv, cells, grid, slot_base=K, capacity=K)
+    b = scatter_to_cells_soa(xv, cells, grid, slot_base=k, capacity=k)
     c = grid.n_cells
     ma, mb = cells.mask[:c], sp.mask[:c]
-    assert bool(mb.any()), "the spill tier must be occupied"
+    assert k != K or bool(mb.any()), "the spill tier must be occupied"
     rho = ops.density_spill_plain(a[:3], ma, b[:3], mb, grid, params)
 
     def finish(r, m):
@@ -752,3 +754,295 @@ def test_single_tier_and_periodic_kernel_steps_match_plain_steps(
     numpy.testing.assert_allclose(
         d_k / scale, d_p / scale, rtol=1e-4, atol=1e-5 + 3 * 2.5e-4 / scale
     )
+
+
+# --------------------------------------------------------------------------
+# the pair passes the reference runs in jnp: XSPH (rides the momentum
+# kernel), the Akinci surface normals and force, the energy rate
+# --------------------------------------------------------------------------
+
+GAMMA = 0.05  # surface-tension strength
+XSPH = 0.5
+
+
+def _normals(a, b, grid, params, kernel):
+    """The complete plain normals of both tiers (``AA + AB``, ``BB +
+    BA``), as the force pass takes them."""
+    def n(cen, nbr):
+        return ops.st_normals_pairs_plain(cen[0], cen[4], nbr[0], nbr[2],
+                                          nbr[4], grid, params, kernel)
+
+    return n(a, a) + n(a, b), n(b, b) + n(b, a)
+
+
+def _hold_option_roles(grid, params, tiers, normals, kernel, tile=None,
+                       roles=None):
+    """Every new role on the tiers ``tiers`` (each ``(x, v, rho, p,
+    mask)``, ``normals`` theirs) against its plain version, each output
+    plane scaled by its max at rtol 1e-4, atol 1e-5; dead centre slots are
+    exactly 0.  The XSPH instances' acceleration (and drho/dt) planes must
+    be bit-identical to those of the instances without XSPH.  ``roles``:
+    the (centre, neighbour) index pairs (default: every pair)."""
+    n_t = len(tiers)
+    roles = roles or [(i, j) for i in range(n_t) for j in range(n_t)]
+    for i, j in roles:
+        c, nb, cross = tiers[i], tiers[j], i != j
+        live = c[4].cpu().numpy()
+        if not live.any():
+            continue
+        kw = {"kernel": kernel, "cross": cross, "tile": tile}
+        cases = [
+            ("accel_xsph", ops.accel_pairs(*c, *nb, grid, params, xsph=True, **kw),
+             ops.accel_pairs_plain(*c, *nb, grid, params, kernel=kernel,
+                                   xsph=True),
+             ops.accel_pairs(*c, *nb, grid, params, **kw)),
+            ("accel_drho_xsph",
+             ops.accel_drho_pairs(*c, *nb, grid, params, xsph=True, **kw),
+             ops.accel_drho_pairs_plain(*c, *nb, grid, params, kernel=kernel,
+                                        xsph=True),
+             ops.accel_drho_pairs(*c, *nb, grid, params, **kw)),
+            ("st_normals",
+             ops.st_normals_pairs(c[0], c[4], nb[0], nb[2], nb[4], grid,
+                                  params, **kw),
+             ops.st_normals_pairs_plain(c[0], c[4], nb[0], nb[2], nb[4], grid,
+                                        params, kernel), None),
+            ("st_force",
+             ops.st_force_pairs(c[0], normals[i], c[2], c[4], nb[0],
+                                normals[j], nb[2], nb[4], grid, params, GAMMA,
+                                **kw),
+             ops.st_force_pairs_plain(c[0], normals[i], c[2], c[4], nb[0],
+                                      normals[j], nb[2], nb[4], grid, params,
+                                      GAMMA, kernel), None),
+            ("energy", ops.energy_pairs(*c, *nb, grid, params, **kw),
+             ops.energy_pairs_plain(*c, *nb, grid, params, kernel), None),
+        ]
+        for name, got, want, base in cases:
+            tag = "%s %d<-%d %s" % (name, i, j, kernel.__name__)
+            planes = [(got, want)] if got.dim() == 2 else list(zip(got, want))
+            for g, w in planes:
+                assert not bool(g[~c[4]].any()), tag + ": dead centre slots"
+                if not bool(w[c[4]].any()):
+                    assert not bool(g.any()), tag
+                    continue
+                _scaled_close(g, w, live, 1e-4, 1e-5)
+            if base is not None:
+                assert torch.equal(got[: base.shape[0]], base), (
+                    tag + ": the XSPH instance changed the other planes")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("kernel", ["WendlandC2", "CubicSpline"])
+def test_option_kernels_match_plain_on_two_tiers(cuda, kernel, k):
+    """The new roles at K = 24 with the spill tier occupied, and at K =
+    32: self (A <- A, B <- B) and cross (A <- B, B <- A) wherever the
+    centre tier holds a particle, with the launch counts; the normals
+    each force launch takes are complete (both tiers)."""
+    kernel = getattr(port_kernels, kernel)
+    grid, params, a, b = _spill_tiers(cuda, k=k)
+    normals = _normals(a, b, grid, params, kernel)
+    ops.reset_launch_counts()
+    _hold_option_roles(grid, params, (a, b), normals, kernel)
+    torch.cuda.synchronize()
+    n = sum(bool(t[4].any()) for t in (a, b))  # tiers with a centre
+    want = {}
+    # the instances without XSPH are launched once a role for the bit check
+    for family in ("accel_xsph", "accel_drho_xsph", "st_normals", "st_force",
+                   "energy", "accel", "accel_drho"):
+        want.update({family + "_self": n, family + "_cross": n})
+    assert _launched() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k128", "k1024", "dense"])
+def test_option_kernels_match_plain_past_64_slots(cuda, case):
+    """The new roles' wide instances: a cloud at K = 128 with arbitrary
+    masks, K = 1024 on a small grid, and a cloud whose densest ranges are
+    staged in three or more pieces at T = 1, at the wrapper's T and forced
+    ones."""
+    if case == "k128":
+        grid, params, tier = _cloud_tier(cuda, 128, True)
+        tiles = (None, 3)
+    else:
+        grid, params, tier, _ = _wide_tile_case(cuda, case)
+        tiles = (None, 1, 16)
+    live = tier[4].cpu().numpy()
+    assert live.sum() > 0 and grid.capacity > ops.MAX_CAPACITY
+    if case == "dense":
+        cap = ops.tile_shared_bytes("st_force", grid, params, 1) // 32
+        assert _most_live_in_a_range(live, grid.dims, 1) > 2 * cap
+    ops.reset_launch_counts()
+    for kernel in (port_kernels.WendlandC2, port_kernels.CubicSpline):
+        normals = ops.st_normals_pairs_plain(tier[0], tier[4], tier[0],
+                                             tier[2], tier[4], grid, params,
+                                             kernel)
+        for tile in tiles:
+            _hold_option_roles(grid, params, (tier,), (normals,), kernel,
+                               tile=tile)
+    torch.cuda.synchronize()
+    runs = 2 * len(tiles)
+    want = {f + "_wide": runs for f in ("accel_xsph", "accel_drho_xsph",
+                                        "st_normals", "st_force", "energy")}
+    want.update({"accel_wide": runs, "accel_drho_wide": runs})
+    assert _launched() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [16, 48, 128])
+def test_option_ghost_halo_matches_wrapped_plain(cuda, capacity):
+    """The periodic route of the new passes (ghost halo; the normals
+    selected back to the interior rows before the force pass expands them
+    again) against the plain versions' wrapped table: the single tier at
+    K = 48 and 128, both tiers at K = 16 (spill tier occupied)."""
+    sc, state = _periodic_box(cuda)
+    grid, params = sc.grid._replace(capacity=capacity), sc.params
+    wrap = (True, True, True)
+    xv = torch.cat([state.x, state.v], 1)
+    c = grid.n_cells
+    ops.reset_launch_counts()
+    if capacity == 16:
+        cells, sp = build_cells_spill(state.x, grid, capacity)
+        assert int(cells.overflow) == 0 and bool(sp.mask.any())
+        a = scatter_to_cells_soa(xv, cells, grid)
+        b = scatter_to_cells_soa(xv, cells, grid, slot_base=capacity,
+                                 capacity=capacity)
+        ma, mb = cells.mask[:c], sp.mask[:c]
+        rho = ops.density_spill_plain(a[:3], ma, b[:3], mb, grid, params,
+                                      wrap_axes=wrap)
+        ta = (a[:3], a[3:], *_finish(rho[0], ma, params), ma)
+        tb = (b[:3], b[3:], *_finish(rho[1], mb, params), mb)
+        st = (ta[0], ta[2], ma, tb[0], tb[2], mb, grid, params, GAMMA)
+        pairs = [
+            (ops.accel_spill(*ta, *tb, grid, params, wrap_axes=wrap, xsph=True),
+             ops.accel_spill_plain(*ta, *tb, grid, params, wrap_axes=wrap,
+                                   xsph=True)),
+            (ops.accel_drho_spill(*ta, *tb, grid, params, wrap_axes=wrap,
+                                  xsph=True),
+             ops.accel_drho_spill_plain(*ta, *tb, grid, params,
+                                        wrap_axes=wrap, xsph=True)),
+            (ops.surface_tension_spill(*st, wrap_axes=wrap),
+             ops.surface_tension_spill_plain(*st, wrap_axes=wrap)),
+            (tuple(d[..., None] for d in ops.energy_spill(
+                *ta, *tb, grid, params, wrap_axes=wrap)),
+             tuple(d[..., None] for d in ops.energy_spill_plain(
+                 *ta, *tb, grid, params, wrap_axes=wrap))),
+        ]
+        lives = (ma.cpu().numpy(), mb.cpu().numpy())
+        for got, want in pairs:
+            for t in range(2):
+                for col in range(want[t].shape[-1]):
+                    _scaled_close(got[t][..., col], want[t][..., col],
+                                  lives[t], 1e-4, 1e-5)
+        want_counts = {f + r: 2 for f in ("accel_xsph", "accel_drho_xsph",
+                                          "st_normals", "st_force", "energy")
+                       for r in ("_self", "_cross")}
+    else:
+        cells = build_cells(state.x, grid)
+        assert int(cells.overflow) == 0
+        soa = scatter_to_cells_soa(xv, cells, grid)
+        m = cells.mask[:c]
+        rho = ops.density_plain(soa[:3], m, grid, params, wrap_axes=wrap)
+        t = (soa[:3], soa[3:], *_finish(rho, m, params), m)
+        st = (t[0], t[2], m, grid, params, GAMMA)
+        pairs = [
+            (ops.accel(*t, grid, params, wrap_axes=wrap, xsph=True),
+             ops.accel_plain(*t, grid, params, wrap_axes=wrap, xsph=True)),
+            (ops.accel_drho(*t, grid, params, wrap_axes=wrap, xsph=True),
+             ops.accel_drho_plain(*t, grid, params, wrap_axes=wrap, xsph=True)),
+            (ops.surface_tension(*st, wrap_axes=wrap),
+             ops.surface_tension_plain(*st, wrap_axes=wrap)),
+            (ops.energy(*t, grid, params, wrap_axes=wrap)[None],
+             ops.energy_plain(*t, grid, params, wrap_axes=wrap)[None]),
+        ]
+        live = m.cpu().numpy()
+        for got, want in pairs:
+            for col in range(want.shape[0]):
+                _scaled_close(got[col], want[col], live, 1e-4, 1e-5)
+        role = "_wide" if capacity > 64 else "_self"
+        want_counts = {f + role: 1 for f in ("accel_xsph", "accel_drho_xsph",
+                                             "st_normals", "st_force",
+                                             "energy")}
+    torch.cuda.synchronize()
+    assert _launched() == want_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+@pytest.mark.parametrize(
+    "scenario, capacity", [("dam_break", 24), ("dam_break", 128),
+                           ("periodic", 16)],
+    ids=["spill", "wide", "periodic_spill"],
+)
+def test_kernel_steps_with_options_match_plain_steps(
+    cuda, scenario, capacity, density_mode
+):
+    """Three kernel steps with ``xsph=0.5`` and ``surface_tension=0.05``
+    against the single-tier plain step (twice the capacity for the
+    two-tier layout, slot-identical), with the exact launch counts: on
+    the two-tier layout XSPH adds no launch and surface tension 4 normals
+    and 4 force launches a step, on the single tier 1 + 1."""
+    periodic = scenario == "periodic"
+    if periodic:
+        sc, state = _periodic_box(cuda)
+        grid, params = sc.grid._replace(capacity=capacity), sc.params
+    else:
+        db = dam_break(n_side=10, capacity=capacity, device=cuda)
+        rng = numpy.random.default_rng(5)
+        dv = 0.1 * rng.standard_normal(tuple(db.state.v.shape))
+        state = db.state._replace(
+            v=torch.from_numpy(dv.astype(numpy.float32)).to(cuda))
+        grid, params = db.grid, db.params
+    kw = {"periodic": periodic, "density_mode": density_mode, "device": cuda,
+          "xsph": XSPH, "surface_tension": GAMMA}
+    step_k = make_step_fn(grid, params, **kw)
+    spill = capacity <= 64
+    assert step_k.resolved == {
+        "use_kernels": True, "spill": spill, "density_mode": density_mode
+    }
+    plain_grid = grid._replace(capacity=2 * capacity) if spill else grid
+    step_p = make_step_fn(plain_grid, params, use_kernels=False, spill=False,
+                          **kw)
+    if density_mode == "continuity":
+        state = init_density(state, plain_grid, params, periodic=periodic,
+                             device=cuda)
+    ops.reset_launch_counts()
+    sk = sp = state
+    for _ in range(3):
+        sk, (rho_k, _, ov_k) = step_k(sk)
+        sp, (rho_p, _, ov_p) = step_p(sp)
+        assert int(ov_k) == int(ov_p) == 0
+    torch.cuda.synchronize()
+    family = ("accel_drho_xsph" if density_mode == "continuity"
+              else "accel_xsph")
+    families = [family, "st_normals", "st_force"]
+    if density_mode == "summation":
+        families.append("density")
+    want = ({f + r: 6 for f in families for r in ("_self", "_cross")}
+            if spill else {f + "_wide": 3 for f in families})
+    assert _launched() == want
+    numpy.testing.assert_allclose(
+        sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    everything = numpy.ones(tuple(sp.v.shape), bool)
+    _scaled_close(sk.v, sp.v, everything, 1e-4, 1e-5)
+    if density_mode == "summation":
+        _scaled_close(rho_k, rho_p, everything[:, 0], 1e-5, 1e-6)
+    else:
+        numpy.testing.assert_allclose(
+            sk.rho.cpu().numpy(), sp.rho.cpu().numpy(), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [48, 128])
+@pytest.mark.parametrize("periodic", [False, True], ids=["closed", "periodic"])
+def test_energy_rate_on_the_card_matches_the_plain_pass(cuda, capacity,
+                                                        periodic):
+    sc, state = _periodic_box(cuda)
+    grid, params = sc.grid._replace(capacity=capacity), sc.params
+    ops.reset_launch_counts()
+    got = energy_rate(state, grid, params, periodic=periodic)
+    torch.cuda.synchronize()
+    role = "_wide" if capacity > 64 else "_self"
+    assert _launched() == {"density" + role: 1, "energy" + role: 1}
+    want = energy_rate(SPHState(x=state.x.cpu(), v=state.v.cpu()), grid,
+                       params, periodic=periodic, device="cpu")
+    _scaled_close(got, want, numpy.ones(tuple(want.shape), bool), 1e-4, 1e-5)

@@ -1,7 +1,8 @@
 """The torch port's SPH step against the JAX package: the spill slice with
 its async GSD dump (JAX spill step in Pallas interpret mode), the
 single-tier plain path (JAX jnp path), continuity-density mode on both
-layouts, the auto policy and the options that are not ported yet.
+layouts, the auto policy, the ported options (their parity is in
+tests/test_torch_options.py) and the option that is not ported yet.
 
 Tolerances: positions rtol 1e-5, atol 1e-6; density rtol 1e-5, atol 1e-6
 and velocity rtol 1e-4, atol 1e-5 on values scaled by their max (as
@@ -247,19 +248,46 @@ def test_kernels_on_cpu_raise():
         make_step_fn(grid, params, use_kernels=True, spill=True, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        {"periodic": True, "xsph": 0.5},
-        {"xsph": 0.5},
-        {"surface_tension": 0.1},
-        {"sharding": 4},
-    ],
-    ids=["periodic_xsph", "xsph", "surface_tension", "sharding"],
-)
+@pytest.mark.parametrize("kw", [{"sharding": 4}], ids=["sharding"])
 def test_unported_options_raise(kw):
     grid, params = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        make_step_fn(grid, params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"periodic": True, "xsph": 0.5}, {"xsph": 0.5}, {"surface_tension": 0.1}],
+    ids=["periodic_xsph", "xsph", "surface_tension"],
+)
+def test_ported_options_build_and_step_on_cpu(kw):
+    """The options that raised before they were ported build a step that
+    runs on the CPU, keeps the state finite and in the box, and moves it
+    otherwise than the step without them."""
+    db = ref_dam_break(n_side=6, capacity=64)
+    grid, params = grid_from_reference(db.grid), params_from_reference(db.params)
+    x0, v0 = _moving_state(db)
+    state = state_from_numpy(x0, v0, "cpu")
+    step = make_step_fn(grid, params, device="cpu", **kw)
+    base = make_step_fn(grid, params, device="cpu",
+                        periodic=kw.get("periodic", False))
+    assert step.resolved == base.resolved == {
+        "use_kernels": False, "spill": False, "density_mode": "summation"
+    }
+    new, (rho, p, ov) = step(state)
+    plain, _ = base(state)
+    assert int(ov) == 0 and new.x.shape == state.x.shape
+    assert bool(torch.isfinite(new.x).all() and torch.isfinite(new.v).all())
+    assert not torch.equal(new.x, plain.x)
+    hi = numpy.asarray(db.box, numpy.float32)
+    assert bool((new.x >= 0).all()) and bool((new.x <= torch.from_numpy(hi)).all())
+
+
+@pytest.mark.parametrize("kw", [{"xsph": -0.5}, {"surface_tension": -1.0}],
+                         ids=["xsph", "surface_tension"])
+def test_negative_option_strengths_raise(kw):
+    grid, params = _small()
+    with pytest.raises(ValueError, match=">= 0"):
         make_step_fn(grid, params, device="cpu", **kw)
 
 

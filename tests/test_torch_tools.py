@@ -46,3 +46,29 @@ def test_tool_needs_a_card():
     )
     assert proc.returncode != 0
     assert "needs an NVIDIA GPU" in proc.stderr
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1c76b0a5_12_sph_pairs_cu_4a1c967818accel_pairs_kernelILb1ELb1ELi1EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__1c76b0a5_12_sph_pairs_cu_4a1c967818accel_pairs_kernelILb1ELb1ELi1EEEvPKfS2_
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 2240 bytes smem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1c76b0a5_12_sph_pairs_cu_4a1c967820density_pairs_kernelILb0EEEvPKfPKhS2_S4_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__1c76b0a5_12_sph_pairs_cu_4a1c967820density_pairs_kernelILb0EEEvPKfPKhS2_S4_Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 2240 bytes smem
+"""
+
+
+def test_ptxas_instances_names_each_instance_as_in_the_source():
+    """``chip_smoke.phase_registers`` reads the registers and spills of
+    every kernel instance from the compiler's ``-Xptxas -v`` output, with
+    the template arguments spelled as in the source."""
+    cs = _chip_smoke()
+    assert cs.ptxas_instances(_PTXAS_LOG) == {
+        "accel_pairs_kernel<true, true, 1>": (64, 8),
+        "density_pairs_kernel<false>": (40, 0),
+    }
+    with pytest.raises(AssertionError, match="spilling"):
+        cs.phase_registers(_PTXAS_LOG)

@@ -90,15 +90,32 @@ def _declare(lib):
     accel_pairs = [
         p, p, p, p, p,  # xc, vc, rhoc, ptc, mc
         p, p, p, p, p,  # xn, vn, rhon, ptn, mn
-        p, i,  # out, n_out (3: acc; 4: acc and drho/dt)
+        p, i,  # out, n_out (1: du/dt; 3: acc; 4: acc, drho/dt; 6, 7: + XSPH)
         i, i, i, i, i, i,  # nx, ny, nz, k, tile, kind
         f, f, f, f, f, f,  # inv2h, h, sigma, h2eps, cv, supp2
-        f, f, f, f,  # adrho, ddfold, eta2, rho_floor (n_out = 4)
+        f, f, f, f,  # adrho, ddfold, eta2, rho_floor (n_out = 4, 7)
+        f,  # xfold (n_out = 6, 7)
+        p,  # stream
+    ]
+    st_normals = [
+        p, p, p, p, p, p,  # xc, mc, xn, rhon, mn, out
+        i, i, i, i, i, i,  # nx, ny, nz, k, tile, kind
+        f, f, f, f, f,  # inv2h, h, sigma, supp2, nfold
+        p,  # stream
+    ]
+    st_force = [
+        p, p, p, p,  # xc, nc, rhoc, mc
+        p, p, p, p,  # xn, nn, rhon, mn
+        p,  # out
+        i, i, i, i, i,  # nx, ny, nz, k, tile
+        f, f, f, f,  # supp2, inv_hs, cohfold, kfold
         p,  # stream
     ]
     for fn, argtypes in (
         (lib.tpgsd_density_pairs, density_pairs),
         (lib.tpgsd_accel_pairs, accel_pairs),
+        (lib.tpgsd_st_normals, st_normals),
+        (lib.tpgsd_st_force, st_force),
     ):
         fn.argtypes = argtypes
         fn.restype = i

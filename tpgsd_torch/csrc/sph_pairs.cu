@@ -13,10 +13,31 @@
 //   accel_wide       <- _accel_kernel        (accel_pairs_kernel<false, true>)
 //   accel_drho_wide  <- _accel_drho_kernel   (accel_pairs_kernel<true, true>)
 // Every role is an instance of one of two templates, density_pairs_kernel
-// <kWide> and accel_pairs_kernel<kDrho, kWide>: kDrho adds the drho/dt
-// sum, kWide takes capacities past 64 slots.  Both are one tile walk
-// (walk_tile) and evaluate a pair through the same two functions
+// <kWide> and accel_pairs_kernel<kDrho, kWide, kExtra>: kDrho adds the
+// drho/dt sum, kWide takes capacities past 64 slots.  Both are one tile
+// walk (walk_tile) and evaluate a pair through the same two functions
 // (density_pair, momentum_pair).
+//
+// Four more pair passes run as jnp code in the reference (tpgsd/sph/
+// step.py), not as Pallas kernels; they are instances of the same walk:
+//   XSPH             <- _xsph_blocks: accel_pairs_kernel<kDrho, kWide,
+//                       kXsph>, 3 more sums of momentum_pair, so the
+//                       correction rides the momentum launch
+//   energy           <- _energy_blocks: accel_pairs_kernel<false, kWide,
+//                       kEnergy>, du/dt from the very pair scale that the
+//                       acceleration sums (the conjugacy holds in the
+//                       kernel too); the acceleration sums are dead code
+//   st_normals       <- _st_normals_blocks: st_normals_kernel<kWide>, one
+//                       staged float4 (x, y, z, rho), density-like
+//   st_force         <- _st_force_blocks, _cohesion_c: st_force_kernel
+//                       <kWide>, two staged float4s (x, n, rho); its
+//                       curvature term has no kernel weight, so every
+//                       candidate of the 27 cells is a pair, as in the
+//                       reference
+// They cost what a walk with the same staging costs: normals about a
+// density pass, the force a density walk with two float4s and a divide a
+// candidate, XSPH a few FMAs and one approximate divide a pair in the
+// momentum pass.
 // A self pass and a cross pass differ only in which tier holds the centres
 // and which holds the neighbours, so one kernel serves both: the caller
 // passes the centre tier and the neighbour tier.
@@ -180,6 +201,13 @@ constexpr int kList = kMaxTile * kMaxK;
 constexpr int kTilesPerSM = 8;
 constexpr int kDensityTilesPerSM = 12;
 constexpr int kDensityWideTilesPerSM = 10;
+// the passes the reference runs in jnp: at 64 registers a thread, as the
+// momentum kernels, but for the kWide XSPH instances, which spill 4-8 bytes
+// there and take 7 CTAs an SM (72 registers)
+constexpr int kXsphTilesPerSM = 8;
+constexpr int kXsphWideTilesPerSM = 7;
+constexpr int kNormalsTilesPerSM = 8;
+constexpr int kForceTilesPerSM = 8;
 
 // Shared memory of a tile walk besides the staged planes (those are
 // dynamic: their size follows T and min(K, 64)).
@@ -555,8 +583,20 @@ __device__ __forceinline__ float grad_weight(int kind, float r, float inv2h,
 // eta2 keep the denominators positive), so i == j is not special-cased.
 // Output SoA [3, C, K] (acc_x, acc_y, acc_z), or [4, C, K] with drho/dt
 // as the fourth plane; zero on dead centre slots.
-struct DrhoFolds {
-  float adrho, ddfold, eta2, rho_floor;
+//
+// kExtra = kXsph appends the XSPH drift correction (_xsph_blocks)
+//   dv_i = xfold * m_i * sum_j m_j W'(r) / (rho_i + rho_j) * (v_j - v_i)
+// (note the sign), W' = W / sigma from the t that g(r) forms, xfold =
+// 2 m sigma: 3 more planes after the acceleration (and drho/dt).  The
+// acceleration and drho/dt planes are the kPlain instance's, bit for bit.
+// kExtra = kEnergy writes only the internal-energy rate (_energy_blocks)
+//   du_i/dt = -1/2 m_i * sum_j m_j scale_ij (v_ij.x_ij),
+// scale_ij the acceleration's pair scale: [C, K].
+enum Extra { kPlain = 0, kXsph = 1, kEnergy = 2 };
+
+struct MomentumFolds {
+  float adrho, ddfold, eta2, rho_floor;  // drho/dt (kDrho)
+  float xfold;                           // XSPH (kXsph)
 };
 
 // Fields of one particle of the momentum pass.
@@ -564,14 +604,15 @@ struct Particle {
   float x, y, z, vx, vy, vz, rho, pt;
 };
 
-// One pair's terms of the momentum sums (and of drho/dt with kDrho), for
-// centre c and neighbour y of live-mask value m (nothing beyond the
-// support).
-template <bool kDrho>
+// One pair's terms of the momentum sums (and of drho/dt with kDrho, and
+// of `e` with kExtra), for centre c and neighbour y of live-mask value m
+// (nothing beyond the support).
+template <bool kDrho, int kExtra>
 __device__ __forceinline__ void momentum_pair(
     const Particle& c, const Particle& y, float m, int kind, float inv2h,
     float h, float sigma, float h2eps, float cv, float supp2,
-    const DrhoFolds& f, float& ax, float& ay, float& az, float& dr) {
+    const MomentumFolds& f, float& ax, float& ay, float& az, float& dr,
+    float (&e)[3]) {
   const float ddx = c.x - y.x;
   const float ddy = c.y - y.y;
   const float ddz = c.z - y.z;
@@ -595,12 +636,39 @@ __device__ __forceinline__ void momentum_pair(
     }
     dr = fmaf(gr * m, bracket, dr);
   }
+  if constexpr (kExtra == kEnergy) {
+    e[0] = fmaf(scale, vdotx, e[0]);
+  }
+  if constexpr (kExtra == kXsph) {
+    float w;
+    if (kind == kWendlandC2) {  // t^4 (2q + 1), 2q = 4 inv2h r
+      const float t = fmaxf(1.f - inv2h * r, 0.f);
+      const float t2 = t * t;
+      w = (t2 * t2) * fmaf(4.f * inv2h, r, 1.f);
+    } else {
+      w = cubic_w(r, h, 1.f);
+    }
+    const float cw = __fdividef(w * m, c.rho + y.rho);
+    e[0] = fmaf(cw, y.vx - c.vx, e[0]);
+    e[1] = fmaf(cw, y.vy - c.vy, e[1]);
+    e[2] = fmaf(cw, y.vz - c.vz, e[2]);
+  }
+}
+
+// Output planes of an accel_pairs_kernel instance.
+template <bool kDrho, int kExtra>
+__host__ __device__ constexpr int momentum_planes() {
+  return kExtra == kEnergy ? 1
+                           : 3 + (kDrho ? 1 : 0) + (kExtra == kXsph ? 3 : 0);
 }
 
 // kDrho: also sum drho/dt (accel_drho_pairs); kWide: past 64 slots a cell
-// (accel_wide, accel_drho_wide).
-template <bool kDrho, bool kWide>
-__global__ void __launch_bounds__(kThreads, kTilesPerSM)
+// (accel_wide, accel_drho_wide); kExtra: the XSPH sums or the energy rate
+// instead of the acceleration.
+template <bool kDrho, bool kWide, int kExtra>
+__global__ void __launch_bounds__(
+    kThreads, kExtra != kXsph ? kTilesPerSM
+                              : kWide ? kXsphWideTilesPerSM : kXsphTilesPerSM)
 accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                    const float* __restrict__ rhoc,
                    const float* __restrict__ ptc,
@@ -611,11 +679,11 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                    const uint8_t* __restrict__ mn, float* __restrict__ out,
                    Geometry g, int T, int kind, float inv2h, float h,
                    float sigma, float h2eps, float cv, float supp2,
-                   DrhoFolds f) {
+                   MomentumFolds f) {
   extern __shared__ float4 s4[];
   __shared__ TileShared sh;
   constexpr int kF = kMask;  // the planes before kMask, two float4s
-  constexpr int kOut = kDrho ? 4 : 3;
+  constexpr int kOut = momentum_planes<kDrho, kExtra>();
   const int ncell = g.nx * g.ny * g.nz;
   const int c0 = blockIdx.x * T;
   const int cap = stage_cap(T, g.k);
@@ -626,6 +694,7 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                                 rhon, ptn};
   Particle c;
   float ax, ay, az, dr;
+  float e[3];
   walk_tile<kF, true, kWide>(
       src, mc, mn, g, c0, T, s4, sh,
       [&](int s) {
@@ -638,21 +707,176 @@ accel_pairs_kernel(const float* __restrict__ xc, const float* __restrict__ vc,
                      vc[i], vc[plane + i], vc[2 * plane + i],
                      rhoc[i], ptc[i]};
         ax = ay = az = dr = 0.f;
+        e[0] = e[1] = e[2] = 0.f;
       },
       [&](int j) { return sep2(c.x, c.y, c.z, s4[j]) < supp2; },
       [&](int j) {
         const float4 a = s4[j];        // x, y, z, vx
         const float4 b = s4[cap + j];  // vy, vz, rho, pt
         const Particle y{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-        momentum_pair<kDrho>(c, y, 1.f, kind, inv2h, h, sigma, h2eps, cv,
-                             supp2, f, ax, ay, az, dr);
+        momentum_pair<kDrho, kExtra>(c, y, 1.f, kind, inv2h, h, sigma, h2eps,
+                                     cv, supp2, f, ax, ay, az, dr, e);
+      },
+      [&](int s) {
+        const long long i = base + s;
+        if constexpr (kExtra == kEnergy) {
+          out[i] = -0.5f * e[0];
+        } else {
+          out[i] = ax;
+          out[plane + i] = ay;
+          out[2 * plane + i] = az;
+          if constexpr (kDrho) out[3 * plane + i] = f.adrho * dr;
+          if constexpr (kExtra == kXsph) {
+            constexpr int o = kDrho ? 4 : 3;
+            out[o * plane + i] = f.xfold * e[0];
+            out[(o + 1) * plane + i] = f.xfold * e[1];
+            out[(o + 2) * plane + i] = f.xfold * e[2];
+          }
+        }
+      });
+}
+
+// Akinci surface normals (_st_normals_blocks):
+//   n_i = nfold * m_i * sum_j m_j g(r) / rho_j (x_i - x_j),
+// g(r) as in the momentum kernels and nfold = -hs cfold (hs the kernel
+// support), i.e. hs sum_j (m / rho_j) dW/dr / r (x_i - x_j).  One staged
+// float4 (x, y, z, rho) a neighbour, every candidate walked as in
+// density_pairs (the approximate divide by rho_j is the only cost past a
+// density pair's); zero on dead centre slots.  The self pair adds exactly
+// 0 (x_ij = 0).
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, kNormalsTilesPerSM)
+st_normals_kernel(const float* __restrict__ xc,
+                  const uint8_t* __restrict__ mc,
+                  const float* __restrict__ xn,
+                  const float* __restrict__ rhon,
+                  const uint8_t* __restrict__ mn, float* __restrict__ out,
+                  Geometry g, int T, int kind, float inv2h, float h,
+                  float sigma, float supp2, float nfold) {
+  extern __shared__ float4 s4[];
+  __shared__ TileShared sh;
+  constexpr int kF = 4;
+  const int ncell = g.nx * g.ny * g.nz;
+  const int c0 = blockIdx.x * T;
+  const long long plane = (long long)ncell * g.k;
+  const long long base = (long long)c0 * g.k;
+  const float* const src[kF] = {xn, xn + plane, xn + 2 * plane, rhon};
+  float cx, cy, cz, nx, ny, nz;
+  walk_tile<kF, false, kWide>(
+      src, mc, mn, g, c0, T, s4, sh,
+      [&](int s) {
+#pragma unroll
+        for (int o = 0; o < 3; ++o) out[o * plane + base + s] = 0.f;
+      },
+      [&](int s) {
+        cx = xc[base + s];
+        cy = xc[plane + base + s];
+        cz = xc[2 * plane + base + s];
+        nx = ny = nz = 0.f;
+      },
+      [&](int) { return true; },
+      [&](int j) {
+        const float4 y = s4[j];  // x, y, z, rho
+        const float ddx = cx - y.x;
+        const float ddy = cy - y.y;
+        const float ddz = cz - y.z;
+        const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+        if (r2 >= supp2) return;
+        const float q = __fdividef(
+            grad_weight(kind, sqrtf(r2), inv2h, h, sigma), y.w);
+        nx = fmaf(q, ddx, nx);
+        ny = fmaf(q, ddy, ny);
+        nz = fmaf(q, ddz, nz);
+      },
+      [&](int s) {
+        out[base + s] = nfold * nx;
+        out[plane + base + s] = nfold * ny;
+        out[2 * plane + base + s] = nfold * nz;
+      });
+}
+
+// Fields of one particle of the surface-tension force pass.
+struct StParticle {
+  float x, y, z, nx, ny, nz, rho;
+};
+
+// Akinci surface-tension force (_st_force_blocks with _cohesion_c):
+//   a_i = m_i sum_j m_j kfold / (rho_i + rho_j)
+//         * (cohfold F(u) / max(r, 1e-12) (x_i - x_j) + (n_i - n_j))
+// with u = r / hs, F the cohesion spline in units of hs^6 (((1 - u) u)^3
+// past u = 1/2, 2 ((1 - u) u)^3 - 1/64 below, 0 past the support),
+// cohfold = 32 m / (pi hs^3) and kfold = -2 gamma rho0.  The reference's
+// 32 / (pi hs^9) (about 3e15 at the 1M dam break's hs) and its hs^6
+// factors are folded on the host, so no intermediate leaves the float32
+// range at any h.  The curvature term n_i - n_j carries no kernel weight:
+// the reference sums it over every live neighbour of the 27 cells, within
+// the support or not, so this walk visits every candidate (as density
+// does) and evaluates the cohesion spline only within the support.  The
+// self pair adds exactly 0 (x_ij = 0 through the max(r, 1e-12) divisor,
+// n_i - n_i = 0).  Two staged float4s (x, y, z, nx | ny, nz, rho); zero on
+// dead centre slots.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, kForceTilesPerSM)
+st_force_kernel(const float* __restrict__ xc, const float* __restrict__ nc,
+                const float* __restrict__ rhoc,
+                const uint8_t* __restrict__ mc,
+                const float* __restrict__ xn, const float* __restrict__ nn,
+                const float* __restrict__ rhon,
+                const uint8_t* __restrict__ mn, float* __restrict__ out,
+                Geometry g, int T, float supp2, float inv_hs, float cohfold,
+                float kfold) {
+  extern __shared__ float4 s4[];
+  __shared__ TileShared sh;
+  constexpr int kF = 7;
+  const int ncell = g.nx * g.ny * g.nz;
+  const int c0 = blockIdx.x * T;
+  const int cap = stage_cap(T, g.k);
+  const long long plane = (long long)ncell * g.k;
+  const long long base = (long long)c0 * g.k;
+  const float* const src[kF] = {xn, xn + plane, xn + 2 * plane,
+                                nn, nn + plane, nn + 2 * plane, rhon};
+  StParticle c;
+  float ax, ay, az;
+  walk_tile<kF, false, kWide>(
+      src, mc, mn, g, c0, T, s4, sh,
+      [&](int s) {
+#pragma unroll
+        for (int o = 0; o < 3; ++o) out[o * plane + base + s] = 0.f;
+      },
+      [&](int s) {
+        const long long i = base + s;
+        c = StParticle{xc[i], xc[plane + i], xc[2 * plane + i],
+                       nc[i], nc[plane + i], nc[2 * plane + i], rhoc[i]};
+        ax = ay = az = 0.f;
+      },
+      [&](int) { return true; },
+      [&](int j) {
+        const float4 a = s4[j];        // x, y, z, nx
+        const float4 b = s4[cap + j];  // ny, nz, rho, 0
+        const float ddx = c.x - a.x;
+        const float ddy = c.y - a.y;
+        const float ddz = c.z - a.z;
+        const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
+        float coh = 0.f;  // the cohesion spline is 0 past the support
+        if (r2 < supp2) {
+          const float r = sqrtf(r2);
+          const float u = r * inv_hs;
+          const float hr = fmaxf(1.f - u, 0.f) * u;
+          const float core = hr * hr * hr;
+          const float spline = u > 0.5f ? (u <= 1.f ? core : 0.f)
+                                        : fmaf(2.f, core, -1.f / 64.f);
+          coh = cohfold * spline / fmaxf(r, 1e-12f);
+        }
+        const float kij = kfold / (c.rho + b.z);
+        ax = fmaf(kij, fmaf(coh, ddx, c.nx - a.w), ax);
+        ay = fmaf(kij, fmaf(coh, ddy, c.ny - b.x), ay);
+        az = fmaf(kij, fmaf(coh, ddz, c.nz - b.y), az);
       },
       [&](int s) {
         const long long i = base + s;
         out[i] = ax;
         out[plane + i] = ay;
         out[2 * plane + i] = az;
-        if constexpr (kDrho) out[3 * plane + i] = f.adrho * dr;
       });
 }
 
@@ -688,8 +912,10 @@ int tpgsd_density_pairs(const float* xc, const uint8_t* mc, const float* xn,
 
 // n_out = 3: accel_pairs, out [3, C, K]; the four drho folds are unused.
 // n_out = 4: accel_drho_pairs, out [4, C, K] with drho/dt as plane 3.
+// n_out = 6, 7: the same with the XSPH correction (xfold) as the last 3
+// planes.  n_out = 1: the internal-energy rate, out [C, K].
 // Any k up to 1024: one kernel serves the two-tier roles and the single
-// tier past 64 slots (accel_wide, accel_drho_wide).
+// tier past 64 slots (accel_wide, accel_drho_wide, ..._wide).
 int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
                       const float* ptc, const uint8_t* mc, const float* xn,
                       const float* vn, const float* rhon, const float* ptn,
@@ -697,18 +923,40 @@ int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
                       int ny, int nz, int k, int tile, int kind, float inv2h,
                       float h, float sigma, float h2eps, float cv,
                       float supp2, float adrho, float ddfold, float eta2,
-                      float rho_floor, void* stream) {
+                      float rho_floor, float xfold, void* stream) {
   const int ncell = nx * ny * nz;
   if (ncell <= 0 || k <= 0 || k > kMaxWideK || tile < 1 ||
-      tile > kMaxTile || (n_out != 3 && n_out != 4)) {
+      tile > kMaxTile) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool wide = k > kMaxK;
+  decltype(&accel_pairs_kernel<false, false, kPlain>) kernel;
+  switch (n_out) {
+    case 1:
+      kernel = wide ? accel_pairs_kernel<false, true, kEnergy>
+                    : accel_pairs_kernel<false, false, kEnergy>;
+      break;
+    case 3:
+      kernel = wide ? accel_pairs_kernel<false, true, kPlain>
+                    : accel_pairs_kernel<false, false, kPlain>;
+      break;
+    case 4:
+      kernel = wide ? accel_pairs_kernel<true, true, kPlain>
+                    : accel_pairs_kernel<true, false, kPlain>;
+      break;
+    case 6:
+      kernel = wide ? accel_pairs_kernel<false, true, kXsph>
+                    : accel_pairs_kernel<false, false, kXsph>;
+      break;
+    case 7:
+      kernel = wide ? accel_pairs_kernel<true, true, kXsph>
+                    : accel_pairs_kernel<true, false, kXsph>;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   const Geometry g{nx, ny, nz, k};
-  const DrhoFolds f{adrho, ddfold, eta2, rho_floor};
-  auto* kernel = k > kMaxK ? (n_out == 4 ? accel_pairs_kernel<true, true>
-                                          : accel_pairs_kernel<false, true>)
-                           : (n_out == 4 ? accel_pairs_kernel<true, false>
-                                         : accel_pairs_kernel<false, false>);
+  const MomentumFolds f{adrho, ddfold, eta2, rho_floor, xfold};
   kernel<<<(ncell + tile - 1) / tile, kThreads, tile_smem(kMask, tile, k),
            static_cast<cudaStream_t>(stream)>>>(
       xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, out, g, tile, kind,
@@ -716,8 +964,49 @@ int tpgsd_accel_pairs(const float* xc, const float* vc, const float* rhoc,
   return (int)cudaGetLastError();
 }
 
+// Akinci surface normals, out [3, C, K]; any k up to 1024.
+int tpgsd_st_normals(const float* xc, const uint8_t* mc, const float* xn,
+                     const float* rhon, const uint8_t* mn, float* out, int nx,
+                     int ny, int nz, int k, int tile, int kind, float inv2h,
+                     float h, float sigma, float supp2, float nfold,
+                     void* stream) {
+  const int ncell = nx * ny * nz;
+  if (ncell <= 0 || k <= 0 || k > kMaxWideK || tile < 1 ||
+      tile > kMaxTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry g{nx, ny, nz, k};
+  auto* kernel = k > kMaxK ? st_normals_kernel<true> : st_normals_kernel<false>;
+  kernel<<<(ncell + tile - 1) / tile, kThreads, tile_smem(4, tile, k),
+           static_cast<cudaStream_t>(stream)>>>(
+      xc, mc, xn, rhon, mn, out, g, tile, kind, inv2h, h, sigma, supp2,
+      nfold);
+  return (int)cudaGetLastError();
+}
+
+// Akinci surface-tension force, out [3, C, K]; any k up to 1024.
+int tpgsd_st_force(const float* xc, const float* nc, const float* rhoc,
+                   const uint8_t* mc, const float* xn, const float* nn,
+                   const float* rhon, const uint8_t* mn, float* out, int nx,
+                   int ny, int nz, int k, int tile, float supp2,
+                   float inv_hs, float cohfold, float kfold, void* stream) {
+  const int ncell = nx * ny * nz;
+  if (ncell <= 0 || k <= 0 || k > kMaxWideK || tile < 1 ||
+      tile > kMaxTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry g{nx, ny, nz, k};
+  auto* kernel = k > kMaxK ? st_force_kernel<true> : st_force_kernel<false>;
+  kernel<<<(ncell + tile - 1) / tile, kThreads, tile_smem(7, tile, k),
+           static_cast<cudaStream_t>(stream)>>>(
+      xc, nc, rhoc, mc, xn, nn, rhon, mn, out, g, tile, supp2, inv_hs,
+      cohfold, kfold);
+  return (int)cudaGetLastError();
+}
+
 // Bytes of dynamic shared memory one tile launch asks for: `accel` 0 for
-// tpgsd_density_pairs, 1 for tpgsd_accel_pairs (either n_out).
+// tpgsd_density_pairs and tpgsd_st_normals (one staged float4 a
+// particle), 1 for tpgsd_accel_pairs (any n_out) and tpgsd_st_force (two).
 long long tpgsd_tile_smem(int accel, int tile, int k) {
   return (long long)tile_smem(accel ? kMask : 3, tile, k);
 }

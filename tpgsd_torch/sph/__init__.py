@@ -1,8 +1,9 @@
 """PyTorch/CUDA WCSPH producer (counterpart of ``tpgsd.sph``).
 
 Covers summation and continuity density on the single-tier layout and
-on the two-tier spill layout, closed and periodic boxes; the pair passes
-of both layouts run as hand-written CUDA kernels on the card
+on the two-tier spill layout, closed and periodic boxes, with the XSPH
+and Akinci surface-tension options and :func:`energy_rate`; the pair
+passes of both layouts run as hand-written CUDA kernels on the card
 (:mod:`tpgsd_torch.sph.ops`).
 """
 
@@ -31,6 +32,7 @@ from .step import (
     SPHParams,
     SPHState,
     density_and_pressure,
+    energy_rate,
     init_density,
     make_step_fn,
     tait_pressure,
@@ -50,6 +52,7 @@ __all__ = [
     "dam_break",
     "dam_break_2d",
     "density_and_pressure",
+    "energy_rate",
     "gather_from_cells",
     "hydrostatic_tank",
     "init_density",

@@ -19,6 +19,24 @@ accel (wide)              ``_accel_kernel`` (single tier, K > 64)
 accel_drho (wide)         ``_accel_drho_kernel`` (single tier, K > 64)
 ========================  ==============================================
 
+Four more pair passes run jnp code in the reference (``tpgsd/sph/step.py``),
+not Pallas kernels; on the card each is a CUDA kernel on the same tile
+walk, with self, cross and wide roles like the nine above:
+
+=============================  =========================================
+wrapper (launch-count family)  reference pass (tpgsd/sph/step.py)
+=============================  =========================================
+``accel(_drho)(xsph=True)``    ``_xsph_blocks``: 3 more sums of the
+(``accel_xsph``,               momentum kernel, so XSPH adds no launch
+``accel_drho_xsph``)
+st_normals_pairs               ``_st_normals_blocks``
+(``st_normals``)
+st_force_pairs (``st_force``)  ``_st_force_blocks`` (``_cohesion_c``)
+energy_pairs (``energy``)      ``_energy_blocks``: the energy output of
+                               the momentum kernel, on the very pair
+                               scale that the acceleration sums
+=============================  =========================================
+
 A self pass and a cross pass differ only in which tier holds the centres
 and which the neighbours, so each wrapper takes both tiers explicitly.
 The single-tier entry points :func:`density`, :func:`accel` and
@@ -46,6 +64,7 @@ wrapper adds one to :data:`launch_counts` where it launches its kernel.
 """
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -56,6 +75,10 @@ from .step import (
     _accel_blocks,
     _accel_drho_blocks,
     _density_blocks,
+    _energy_blocks,
+    _st_force_blocks,
+    _st_normals_blocks,
+    _xsph_blocks,
     minimum_image,
     neighbor_index,
 )
@@ -81,6 +104,13 @@ launch_counts = {
     "accel_wide": 0,
     "accel_drho_wide": 0,
 }
+#: the pair passes the reference runs in jnp, in the same roles
+launch_counts.update({
+    "%s_%s" % (family, role): 0
+    for family in ("accel_xsph", "accel_drho_xsph", "st_normals", "st_force",
+                   "energy")
+    for role in ("self", "cross", "wide")
+})
 
 
 def reset_launch_counts():
@@ -174,6 +204,35 @@ def _drho_folds(params, kernel, delta_sph):
     return -cfold, ddfold, (0.1 * params.h) ** 2, 0.1 * params.rho0
 
 
+def _xsph_folds(params, kernel):
+    """``xfold = 2 m sigma``: the XSPH sum is ``dv_i = xfold sum_j W'_ij
+    (v_j - v_i) / (rho_i + rho_j)`` with ``W' = W / sigma`` (``t^4 (2q +
+    1)`` for WendlandC2, the cubic spline at sigma 1)."""
+    return 2.0 * params.mass * kernel._sigma(params.h, params.dim)
+
+
+def _st_normals_folds(params, kernel):
+    """``nfold = -hs cfold``: with ``m dW/dr / r = -cfold g`` (``g`` and
+    ``cfold`` of :func:`_accel_folds`), the normal is ``n_i = nfold
+    sum_j g(r) / rho_j (x_i - x_j)``."""
+    cfold, _ = _accel_folds(params, kernel)
+    return -kernel.support_scale * params.h * cfold
+
+
+def _st_force_folds(params, kernel, gamma):
+    """``(inv_hs, cohfold, kfold)`` of the surface-tension force.  With
+    ``u = r / hs``, ``m C(r) = cohfold F(u)``, ``cohfold = 32 m / (pi
+    hs^3)`` and ``F`` the spline in units of ``hs^6`` (``((1 - u) u)^3``
+    past ``u = 1/2``, ``2 ((1 - u) u)^3 - 1/64`` below), so that the
+    ``32 / (pi hs^9)`` of ``_cohesion_c`` (about 3e15 at the 1M dam
+    break's hs) never meets an ``hs^6`` in float32; ``K_ij =
+    2 rho0 / (rho_i + rho_j)`` and ``-gamma`` fold into ``kfold = -2
+    gamma rho0``."""
+    hs = kernel.support_scale * params.h
+    return (1.0 / hs, 32.0 * params.mass / (math.pi * hs**3),
+            -2.0 * gamma * params.rho0)
+
+
 def pressure_plane(rho, p, params, kernel=WendlandC2):
     """The pre-scaled pressure plane ``cfold * p / (rho^2 + 1e-30)`` the
     acceleration kernel reads (``pallas_ops._pack_accel_fields``)."""
@@ -250,7 +309,7 @@ def tile_shared_bytes(family, grid, params, tile=None):
     min(K, 64) particles, the same at any capacity past 64."""
     t = _tile(grid, params, tile)
     return int(_build.load().tpgsd_tile_smem(
-        int(family != "density"), t, grid.capacity))
+        int(family not in ("density", "st_normals")), t, grid.capacity))
 
 
 def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
@@ -279,26 +338,41 @@ def _launch_density(xc, mc, xn, mn, grid, params, kernel, role, tile=None):
     return out
 
 
+#: the momentum kernel's instances by ``(drho, extra)``: launch-count
+#: family and output planes (``extra`` ``"xsph"`` appends the three XSPH
+#: sums; ``"energy"`` writes du/dt alone)
+_MOMENTUM = {
+    (False, None): ("accel", 3),
+    (True, None): ("accel_drho", 4),
+    (False, "xsph"): ("accel_xsph", 6),
+    (True, "xsph"): ("accel_drho_xsph", 7),
+    (False, "energy"): ("energy", 1),
+}
+
+
 def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
-                  params, kernel, role, delta_sph=None, tile=None):
+                  params, kernel, role, delta_sph=None, tile=None, extra=None):
     """One launch of the momentum tile kernel -> ``[3, C, K]``, or with
     ``delta_sph`` (a number, 0 included) of its fused momentum +
-    continuity instance -> ``[4, C, K]``, counted as ``accel_<role>`` or
-    ``accel_drho_<role>``, and past :data:`MAX_CAPACITY` slots as
-    ``accel_wide`` and ``accel_drho_wide``; ``tile`` cells per CTA
-    (:func:`tile_cells` by default) at any capacity."""
+    continuity instance -> ``[4, C, K]``; ``extra="xsph"`` appends the
+    XSPH correction's three planes (``[6 or 7, C, K]``) and
+    ``extra="energy"`` launches the energy instance -> ``[C, K]``.
+    Counted as ``<family>_<role>`` (:data:`_MOMENTUM`), and past
+    :data:`MAX_CAPACITY` slots as ``<family>_wide``; ``tile`` cells per
+    CTA (:func:`tile_cells` by default) at any capacity."""
     lib = _build.load()
     _check_launch(grid, (xc, vc, xn, vn), (rhoc, ptc, rhon, ptn), (mc, mn))
     code = kernel_code(kernel)
     _, cv = _accel_folds(params, kernel)
     drho = delta_sph is not None
+    name, n_out = _MOMENTUM[(drho, extra)]
     drho_folds = _drho_folds(params, kernel, delta_sph) if drho else (0.0,) * 4
-    name = "accel_drho" if drho else "accel"
+    xfold = _xsph_folds(params, kernel) if extra == "xsph" else 0.0
     h = params.h
     h2eps = params.eps * h * h
     supp2 = (kernel.support_scale * h) ** 2
-    n_out = 4 if drho else 3
-    out = xc.new_empty((n_out,) + tuple(mc.shape))
+    shape = tuple(mc.shape) if n_out == 1 else (n_out,) + tuple(mc.shape)
+    out = xc.new_empty(shape)
     nx, ny, nz = grid.dims
     tile = _tile(grid, params, tile)
     args = (xc.data_ptr(), vc.data_ptr(), rhoc.data_ptr(), ptc.data_ptr(),
@@ -306,11 +380,59 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
             ptn.data_ptr(), mn.data_ptr(), out.data_ptr(), n_out,
             nx, ny, nz, grid.capacity)
     folds = (code, 0.5 / h, h, kernel._sigma(h, params.dim), h2eps, cv,
-             supp2, *drho_folds)
+             supp2, *drho_folds, xfold)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tpgsd_accel_pairs(*args, tile, *folds, stream)
     key = _role_key(name, grid, role)
+    _raise_on(lib, rc, key)
+    launch_counts[key] += 1
+    return out
+
+
+def _launch_st_normals(xc, mc, xn, rhon, mn, grid, params, kernel, role,
+                       tile=None):
+    """One launch of the surface-normal tile kernel -> ``[3, C, K]``,
+    counted as ``st_normals_<role>`` (``st_normals_wide`` past
+    :data:`MAX_CAPACITY` slots)."""
+    lib = _build.load()
+    _check_launch(grid, (xc, xn), (rhon,), (mc, mn))
+    h = params.h
+    out = xc.new_empty((3,) + tuple(mc.shape))
+    nx, ny, nz = grid.dims
+    args = (xc.data_ptr(), mc.data_ptr(), xn.data_ptr(), rhon.data_ptr(),
+            mn.data_ptr(), out.data_ptr(), nx, ny, nz, grid.capacity)
+    folds = (kernel_code(kernel), 0.5 / h, h, kernel._sigma(h, params.dim),
+             (kernel.support_scale * h) ** 2, _st_normals_folds(params, kernel))
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpgsd_st_normals(*args, _tile(grid, params, tile), *folds,
+                                  stream)
+    key = _role_key("st_normals", grid, role)
+    _raise_on(lib, rc, key)
+    launch_counts[key] += 1
+    return out
+
+
+def _launch_st_force(xc, nc, rhoc, mc, xn, nn, rhon, mn, grid, params,
+                     kernel, gamma, role, tile=None):
+    """One launch of the surface-tension force tile kernel -> ``[3, C,
+    K]``, counted as ``st_force_<role>`` (``st_force_wide`` past
+    :data:`MAX_CAPACITY` slots)."""
+    lib = _build.load()
+    _check_launch(grid, (xc, nc, xn, nn), (rhoc, rhon), (mc, mn))
+    out = xc.new_empty((3,) + tuple(mc.shape))
+    nx, ny, nz = grid.dims
+    args = (xc.data_ptr(), nc.data_ptr(), rhoc.data_ptr(), mc.data_ptr(),
+            xn.data_ptr(), nn.data_ptr(), rhon.data_ptr(), mn.data_ptr(),
+            out.data_ptr(), nx, ny, nz, grid.capacity)
+    folds = ((kernel.support_scale * params.h) ** 2,
+             *_st_force_folds(params, kernel, gamma))
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpgsd_st_force(*args, _tile(grid, params, tile), *folds,
+                                stream)
+    key = _role_key("st_force", grid, role)
     _raise_on(lib, rc, key)
     launch_counts[key] += 1
     return out
@@ -321,15 +443,20 @@ def _launch_accel(xc, vc, rhoc, ptc, mc, xn, vn, rhon, ptn, mn, grid,
 # --------------------------------------------------------------------------
 
 
+def _table(grid, device, wrap_axes):
+    """The neighbour table and minimum image of the plain versions for
+    ``wrap_axes``."""
+    periodic = _wrapped(wrap_axes) or False
+    return (neighbor_index(grid, device, periodic),
+            minimum_image(grid, device, periodic))
+
+
 def density_pairs_plain(xc, mc, xn, mn, grid, params, kernel=WendlandC2,
                         wrap_axes=None):
     """Plain version of :func:`density_pairs`; ``wrap_axes`` wraps these
     axes through the neighbour table and the minimum image."""
-    periodic = _wrapped(wrap_axes) or False
-    return _density_blocks(
-        xc, mc, xn, mn, neighbor_index(grid, xc.device, periodic), params,
-        kernel, minimum_image(grid, xc.device, periodic),
-    )
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    return _density_blocks(xc, mc, xn, mn, nbr, params, kernel, mimage)
 
 
 def density_pairs(xc, mc, xn, mn, grid, params, kernel=WendlandC2,
@@ -348,70 +475,166 @@ def density_pairs(xc, mc, xn, mn, grid, params, kernel=WendlandC2,
     )
 
 
+def xsph_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
+                     kernel=WendlandC2, wrap_axes=None):
+    """Plain XSPH correction ``[3, C, K]`` of the centres of one tier from
+    the neighbours of a tier (operands as :func:`accel_pairs`; the
+    pressure is not read): the three planes that ``xsph=True`` appends to
+    the momentum passes."""
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    return _xsph_blocks(xc, vc, rhoc, mc, xn, vn, rhon, mn, nbr, params,
+                        kernel, mimage)
+
+
 def accel_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid,
-                      params, kernel=WendlandC2, wrap_axes=None):
+                      params, kernel=WendlandC2, wrap_axes=None, xsph=False):
     """Plain version of :func:`accel_pairs`; ``wrap_axes`` as in
     :func:`density_pairs_plain`."""
-    periodic = _wrapped(wrap_axes) or False
-    return _accel_blocks(
-        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn,
-        neighbor_index(grid, xc.device, periodic), params, kernel,
-        minimum_image(grid, xc.device, periodic),
-    )
+    tiers = (xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn)
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    out = _accel_blocks(*tiers, nbr, params, kernel, mimage)
+    if xsph:
+        out = torch.cat([out, xsph_pairs_plain(*tiers, grid, params, kernel,
+                                               wrap_axes)])
+    return out
 
 
 def accel_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
-                kernel=WendlandC2, cross=False, tile=None):
+                kernel=WendlandC2, cross=False, tile=None, xsph=False):
     """Pressure + viscosity acceleration ``[3, C, K]`` of the centres of
     one tier from the neighbours of a tier (positions and velocities
     ``[3, C, K]``, density, pressure and live mask ``[C, K]``).  Dead
     slots must carry a positive density (the step sets ``rho0``).
-    ``cross`` and ``tile`` as in :func:`density_pairs`."""
+    ``xsph`` appends the XSPH correction's three planes (``[6, C, K]``,
+    launched as ``accel_xsph``).  ``cross`` and ``tile`` as in
+    :func:`density_pairs`."""
     if _on_cpu(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn):
         return accel_pairs_plain(
-            xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params, kernel
+            xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params, kernel,
+            xsph=xsph,
         )
     return _launch_accel(
         xc, vc, rhoc, pressure_plane(rhoc, pc, params, kernel), mc,
         xn, vn, rhon, pressure_plane(rhon, pn, params, kernel), mn,
         grid, params, kernel, "cross" if cross else "self", tile=tile,
+        extra="xsph" if xsph else None,
     )
 
 
 def accel_drho_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid,
                            params, kernel=WendlandC2, delta_sph=0.1,
-                           wrap_axes=None):
+                           wrap_axes=None, xsph=False):
     """Plain version of :func:`accel_drho_pairs`; ``wrap_axes`` as in
     :func:`density_pairs_plain`."""
-    periodic = _wrapped(wrap_axes) or False
-    return _accel_drho_blocks(
-        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn,
-        neighbor_index(grid, xc.device, periodic), params, kernel, delta_sph,
-        minimum_image(grid, xc.device, periodic),
-    )
+    tiers = (xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn)
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    out = _accel_drho_blocks(*tiers, nbr, params, kernel, delta_sph, mimage)
+    if xsph:
+        out = torch.cat([out, xsph_pairs_plain(*tiers, grid, params, kernel,
+                                               wrap_axes)])
+    return out
 
 
 def accel_drho_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
                      kernel=WendlandC2, delta_sph=0.1, cross=False,
-                     tile=None):
+                     tile=None, xsph=False):
     """Fused momentum + continuity pass ``[4, C, K]`` (acc_x, acc_y,
     acc_z, drho/dt) of the centres of one tier from the neighbours of a
     tier; operands as :func:`accel_pairs`.  ``delta_sph`` is the
     delta-SPH density-diffusion strength (0 = off).  Live densities must
     be floored at ``0.1 rho0`` and dead slots carry ``rho0`` (the step
     does both): the kernel floors the neighbour density of the diffusion
-    term there, the plain version does not.  ``cross`` and ``tile`` as in
-    :func:`density_pairs`."""
+    term there, the plain version does not.  ``xsph`` appends the XSPH
+    correction (``[7, C, K]``, launched as ``accel_drho_xsph``).
+    ``cross`` and ``tile`` as in :func:`density_pairs`."""
     if _on_cpu(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn):
         return accel_drho_pairs_plain(
             xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params, kernel,
-            delta_sph,
+            delta_sph, xsph=xsph,
         )
     return _launch_accel(
         xc, vc, rhoc, pressure_plane(rhoc, pc, params, kernel), mc,
         xn, vn, rhon, pressure_plane(rhon, pn, params, kernel), mn,
         grid, params, kernel, "cross" if cross else "self", delta_sph, tile,
+        "xsph" if xsph else None,
     )
+
+
+def energy_pairs_plain(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid,
+                       params, kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`energy_pairs`; ``wrap_axes`` as in
+    :func:`density_pairs_plain`."""
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    return _energy_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
+                          params, kernel, mimage)
+
+
+def energy_pairs(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params,
+                 kernel=WendlandC2, cross=False, tile=None):
+    """Internal-energy rate ``[C, K]`` (du/dt) of the centres of one tier
+    from the neighbours of a tier, the conjugate of :func:`accel_pairs`
+    on the same operands: the energy instance of the momentum kernel
+    sums ``-1/2 scale_ij (v_ij . x_ij)`` with the very ``scale_ij`` that
+    the acceleration sums.  ``cross`` and ``tile`` as in
+    :func:`density_pairs`."""
+    if _on_cpu(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn):
+        return energy_pairs_plain(
+            xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, grid, params, kernel
+        )
+    return _launch_accel(
+        xc, vc, rhoc, pressure_plane(rhoc, pc, params, kernel), mc,
+        xn, vn, rhon, pressure_plane(rhon, pn, params, kernel), mn,
+        grid, params, kernel, "cross" if cross else "self", tile=tile,
+        extra="energy",
+    )
+
+
+def st_normals_pairs_plain(xc, mc, xn, rhon, mn, grid, params,
+                           kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`st_normals_pairs`; ``wrap_axes`` as in
+    :func:`density_pairs_plain`."""
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    return _st_normals_blocks(xc, mc, xn, rhon, mn, nbr, params, kernel,
+                              mimage)
+
+
+def st_normals_pairs(xc, mc, xn, rhon, mn, grid, params, kernel=WendlandC2,
+                     cross=False, tile=None):
+    """Akinci surface normals ``[3, C, K]`` of the centres of one tier
+    (``xc [3, C, K]``, live mask ``mc``) from the neighbours of a tier
+    (positions, density and live mask; dead slots carry a positive
+    density).  ``cross`` and ``tile`` as in :func:`density_pairs`."""
+    if _on_cpu(xc, mc, xn, rhon, mn):
+        return st_normals_pairs_plain(xc, mc, xn, rhon, mn, grid, params,
+                                      kernel)
+    return _launch_st_normals(xc, mc, xn, rhon, mn, grid, params, kernel,
+                              "cross" if cross else "self", tile)
+
+
+def st_force_pairs_plain(xc, nc, rhoc, mc, xn, nn, rhon, mn, grid, params,
+                         gamma, kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`st_force_pairs`; ``wrap_axes`` as in
+    :func:`density_pairs_plain`."""
+    nbr, mimage = _table(grid, xc.device, wrap_axes)
+    return _st_force_blocks(xc, nc, rhoc, mc, xn, nn, rhon, mn, nbr, params,
+                            kernel, gamma, mimage)
+
+
+def st_force_pairs(xc, nc, rhoc, mc, xn, nn, rhon, mn, grid, params, gamma,
+                   kernel=WendlandC2, cross=False, tile=None):
+    """Akinci surface-tension acceleration ``[3, C, K]`` (cohesion and
+    curvature, strength ``gamma``) of the centres of one tier from the
+    neighbours of a tier: positions and normals ``[3, C, K]``, density
+    and live mask ``[C, K]`` (dead slots carry a positive density).  The
+    normals must be complete (every tier's contribution summed) before
+    this pass.  As in the reference, the curvature term ``n_i - n_j``
+    sums over every live neighbour of the 27 cells, within the support
+    or not.  ``cross`` and ``tile`` as in :func:`density_pairs`."""
+    if _on_cpu(xc, nc, rhoc, mc, xn, nn, rhon, mn):
+        return st_force_pairs_plain(xc, nc, rhoc, mc, xn, nn, rhon, mn, grid,
+                                    params, gamma, kernel)
+    return _launch_st_force(xc, nc, rhoc, mc, xn, nn, rhon, mn, grid, params,
+                            kernel, gamma, "cross" if cross else "self", tile)
 
 
 # --------------------------------------------------------------------------
@@ -521,19 +744,32 @@ def density_plain(dense_x, mask, grid, params, kernel=WendlandC2,
     )
 
 
-def _accel_single_tier(tier, grid, params, kernel, delta_sph, wrap_axes):
+def _momentum_plain(cen, nbr, grid, params, kernel, delta_sph, extra,
+                    wrap_axes=None):
+    """The plain version of one momentum-kernel launch on tiers ``cen``
+    and ``nbr`` (each ``(x, v, rho, p, mask)``): ``delta_sph`` and
+    ``extra`` as in :func:`_launch_accel`."""
+    if extra == "energy":
+        return energy_pairs_plain(*cen, *nbr, grid, params, kernel, wrap_axes)
+    xsph = extra == "xsph"
+    if delta_sph is None:
+        return accel_pairs_plain(*cen, *nbr, grid, params, kernel, wrap_axes,
+                                 xsph)
+    return accel_drho_pairs_plain(*cen, *nbr, grid, params, kernel, delta_sph,
+                                  wrap_axes, xsph)
+
+
+def _accel_single_tier(tier, grid, params, kernel, delta_sph, wrap_axes,
+                       extra=None):
     """The momentum pass of one tier ``(x, v, rho, p, mask)`` -> ``[3, C,
     K]``, or with ``delta_sph`` (a number, 0 included) the fused momentum
-    + continuity pass -> ``[4, C, K]``."""
+    + continuity pass -> ``[4, C, K]``; ``extra`` as in
+    :func:`_launch_accel`."""
     c = grid.n_cells
     tier = tier[:2] + tuple(f[:c] for f in tier[2:])
     if _on_cpu(*tier):
         def pairs(t, g):
-            if delta_sph is None:
-                return accel_pairs_plain(*t, *t, g, params, kernel)
-            return accel_drho_pairs_plain(
-                *t, *t, g, params, kernel, delta_sph
-            )
+            return _momentum_plain(t, t, g, params, kernel, delta_sph, extra)
     else:
         tier = (
             tier[:3] + (pressure_plane(tier[2], tier[3], params, kernel),)
@@ -541,50 +777,113 @@ def _accel_single_tier(tier, grid, params, kernel, delta_sph, wrap_axes):
         )
 
         def pairs(t, g):
-            return _launch_accel(*t, *t, g, params, kernel, "self", delta_sph)
+            return _launch_accel(*t, *t, g, params, kernel, "self", delta_sph,
+                                 extra=extra)
 
     return _single_tier(pairs, tier, grid, wrap_axes)
 
 
+def _plain_tier(dense_x, dense_v, dense_rho, dense_p, mask, grid):
+    c = grid.n_cells
+    return (dense_x, dense_v, dense_rho[:c], dense_p[:c], mask[:c])
+
+
 def accel(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
-          kernel=WendlandC2, wrap_axes=None):
+          kernel=WendlandC2, wrap_axes=None, xsph=False):
     """Per-slot pressure + viscosity acceleration ``[3, C, K]`` of one
     tier (positions and velocities ``[3, C, K]``; density, pressure and
     live mask ``[C(+1), K]``); operands as :func:`accel_pairs`,
-    ``wrap_axes`` and dispatch as :func:`density`."""
+    ``wrap_axes`` and dispatch as :func:`density`.  ``xsph`` appends the
+    XSPH correction (``[6, C, K]``) from the same launch."""
     return _accel_single_tier(
         (dense_x, dense_v, dense_rho, dense_p, mask), grid, params, kernel,
-        None, wrap_axes,
+        None, wrap_axes, "xsph" if xsph else None,
     )
 
 
 def accel_plain(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
-                kernel=WendlandC2, wrap_axes=None):
+                kernel=WendlandC2, wrap_axes=None, xsph=False):
     """Plain version of :func:`accel` (as :func:`density_plain`)."""
-    c = grid.n_cells
-    t = (dense_x, dense_v, dense_rho[:c], dense_p[:c], mask[:c])
-    return accel_pairs_plain(*t, *t, grid, params, kernel, wrap_axes)
+    t = _plain_tier(dense_x, dense_v, dense_rho, dense_p, mask, grid)
+    return accel_pairs_plain(*t, *t, grid, params, kernel, wrap_axes, xsph)
 
 
 def accel_drho(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
-               kernel=WendlandC2, delta_sph=0.1, wrap_axes=None):
+               kernel=WendlandC2, delta_sph=0.1, wrap_axes=None, xsph=False):
     """Fused momentum + continuity pass ``[4, C, K]`` (acc_x, acc_y,
     acc_z, drho/dt) of one tier; operands as :func:`accel_drho_pairs`,
-    ``wrap_axes`` and dispatch as :func:`density`."""
+    ``wrap_axes`` and dispatch as :func:`density`.  ``xsph`` appends the
+    XSPH correction (``[7, C, K]``) from the same launch."""
     return _accel_single_tier(
         (dense_x, dense_v, dense_rho, dense_p, mask), grid, params, kernel,
-        delta_sph, wrap_axes,
+        delta_sph, wrap_axes, "xsph" if xsph else None,
     )
 
 
 def accel_drho_plain(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
-                     kernel=WendlandC2, delta_sph=0.1, wrap_axes=None):
+                     kernel=WendlandC2, delta_sph=0.1, wrap_axes=None,
+                     xsph=False):
     """Plain version of :func:`accel_drho` (as :func:`density_plain`)."""
-    c = grid.n_cells
-    t = (dense_x, dense_v, dense_rho[:c], dense_p[:c], mask[:c])
+    t = _plain_tier(dense_x, dense_v, dense_rho, dense_p, mask, grid)
     return accel_drho_pairs_plain(
-        *t, *t, grid, params, kernel, delta_sph, wrap_axes
+        *t, *t, grid, params, kernel, delta_sph, wrap_axes, xsph
     )
+
+
+def energy(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
+           kernel=WendlandC2, wrap_axes=None):
+    """Per-slot internal-energy rate ``[C, K]`` of one tier, the
+    conjugate of :func:`accel` on the same operands; ``wrap_axes`` and
+    dispatch as :func:`density` (launch key ``energy_self``,
+    ``energy_wide`` past 64 slots)."""
+    return _accel_single_tier(
+        (dense_x, dense_v, dense_rho, dense_p, mask), grid, params, kernel,
+        None, wrap_axes, "energy",
+    )
+
+
+def energy_plain(dense_x, dense_v, dense_rho, dense_p, mask, grid, params,
+                 kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`energy` (as :func:`density_plain`)."""
+    t = _plain_tier(dense_x, dense_v, dense_rho, dense_p, mask, grid)
+    return energy_pairs_plain(*t, *t, grid, params, kernel, wrap_axes)
+
+
+def surface_tension(dense_x, dense_rho, mask, grid, params, gamma,
+                    kernel=WendlandC2, wrap_axes=None):
+    """Per-slot Akinci surface-tension acceleration ``[3, C, K]`` of one
+    tier (positions ``[3, C, K]``; density and live mask ``[C(+1), K]``,
+    dead slots at a positive density): the normals pass, then the force
+    pass, each a self-role launch (``st_normals``, ``st_force``; ``_wide``
+    past 64 slots).  With ``wrap_axes`` the normals are computed on the
+    ghost grid, selected back to the interior rows (a halo cell's own
+    neighbourhood is truncated) and only then ghost-expanded, unshifted,
+    for the force pass.  CPU tensors take the plain passes."""
+    c = grid.n_cells
+    x, rho, m = dense_x, dense_rho[:c], mask[:c]
+
+    def normals(t, g):
+        tx, tr, tm = t
+        return st_normals_pairs(tx, tm, tx, tr, tm, g, params, kernel)
+
+    def force(t, g):
+        return st_force_pairs(*t, *t, g, params, gamma, kernel)
+
+    n = _single_tier(normals, (x, rho, m), grid, wrap_axes)
+    # the normals ride as element 1: _ghost_tier shifts only element 0
+    return _single_tier(force, (x, n, rho, m), grid, wrap_axes)
+
+
+def surface_tension_plain(dense_x, dense_rho, mask, grid, params, gamma,
+                          kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`surface_tension` (as
+    :func:`density_plain`)."""
+    c = grid.n_cells
+    x, rho, m = dense_x, dense_rho[:c], mask[:c]
+    n = st_normals_pairs_plain(x, m, x, rho, m, grid, params, kernel,
+                               wrap_axes)
+    return st_force_pairs_plain(x, n, rho, m, x, n, rho, m, grid, params,
+                                gamma, kernel, wrap_axes)
 
 
 # --------------------------------------------------------------------------
@@ -649,30 +948,26 @@ def density_spill_plain(dense_x_a, mask_a, dense_x_b, mask_b, grid, params,
     )
 
 
-def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain, wrap_axes):
+def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain, wrap_axes,
+                    extra=None):
     """Two-tier sums ``(AA + AB, BB + BA)`` of the momentum pass, or with
     ``delta_sph`` (a number, 0 included) of the fused momentum +
     continuity pass, over tiers ``a`` and ``b`` (each ``(x, v, rho, p,
-    mask)``), as ``[C, K, F]`` views of the SoA sums.  ``plain`` takes
-    the plain pair passes with ``wrap_axes`` in the neighbour table and
-    the minimum image; otherwise ``wrap_axes`` is the ghost halo, on
+    mask)``), as ``[C, K, F]`` views of the SoA sums (``extra`` as in
+    :func:`_launch_accel`; the energy pass gives ``[C, K]``).  ``plain``
+    takes the plain pair passes with ``wrap_axes`` in the neighbour table
+    and the minimum image; otherwise ``wrap_axes`` is the ghost halo, on
     which CPU tensors take the plain pair passes and CUDA tensors launch
     the kernel four times, with each tier's pressure plane folded once
     for its two passes."""
     c = grid.n_cells
     a, b = (t[:2] + tuple(f[:c] for f in t[2:]) for t in (a, b))
-    drho = delta_sph is not None
     if plain or _on_cpu(*a, *b):
         table_wrap = wrap_axes if plain else None
 
         def pairs(cen, nbr, role, g):
-            if drho:
-                return accel_drho_pairs_plain(
-                    *cen, *nbr, g, params, kernel, delta_sph, table_wrap
-                )
-            return accel_pairs_plain(
-                *cen, *nbr, g, params, kernel, table_wrap
-            )
+            return _momentum_plain(cen, nbr, g, params, kernel, delta_sph,
+                                   extra, table_wrap)
     else:
         a, b = (
             t[:3] + (pressure_plane(t[2], t[3], params, kernel),) + t[4:]
@@ -681,36 +976,40 @@ def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain, wrap_axes):
 
         def pairs(cen, nbr, role, g):
             return _launch_accel(
-                *cen, *nbr, g, params, kernel, role, delta_sph
+                *cen, *nbr, g, params, kernel, role, delta_sph, extra=extra
             )
 
     out_a, out_b = _two_tier(
         pairs, a, b, grid, None if plain else wrap_axes
     )
+    if extra == "energy":
+        return out_a, out_b
     return out_a.permute(1, 2, 0), out_b.permute(1, 2, 0)
 
 
 def accel_spill(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2, wrap_axes=None,
+    grid, params, kernel=WendlandC2, wrap_axes=None, xsph=False,
 ):
     """Two-tier SPH acceleration, the counterpart of
     :func:`density_spill`.  Returns ``(acc_a, acc_b)``, each ``[C, K,
     3]`` (views of the SoA sums): ``acc_a = AA + AB``, ``acc_b = BB +
-    BA``.  CPU tensors take the plain pair passes; CUDA tensors launch
-    the acceleration kernel four times."""
+    BA``; ``xsph`` appends the XSPH correction as columns 3-5.  CPU
+    tensors take the plain pair passes; CUDA tensors launch the
+    acceleration kernel four times."""
     return _accel_two_tier(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
         grid, params, kernel, None, False, wrap_axes,
+        "xsph" if xsph else None,
     )
 
 
 def accel_spill_plain(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2, wrap_axes=None,
+    grid, params, kernel=WendlandC2, wrap_axes=None, xsph=False,
 ):
     """Plain version of :func:`accel_spill` (as
     :func:`density_spill_plain`)."""
@@ -718,6 +1017,7 @@ def accel_spill_plain(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
         grid, params, kernel, None, True, wrap_axes,
+        "xsph" if xsph else None,
     )
 
 
@@ -725,17 +1025,20 @@ def accel_drho_spill(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
     grid, params, kernel=WendlandC2, delta_sph=0.1, wrap_axes=None,
+    xsph=False,
 ):
     """Two-tier fused momentum + continuity pass (continuity-density mode
     on the spill layout), the drho counterpart of :func:`accel_spill`.
     Returns ``(out4_a, out4_b)``, each ``[C, K, 4]`` (views of the SoA
     sums) with columns acc_x, acc_y, acc_z, drho/dt: ``out4_a = AA + AB``,
-    ``out4_b = BB + BA``.  CPU tensors take the plain pair passes; CUDA
-    tensors launch the fused kernel four times."""
+    ``out4_b = BB + BA``; ``xsph`` appends the XSPH correction as
+    columns 4-6.  CPU tensors take the plain pair passes; CUDA tensors
+    launch the fused kernel four times."""
     return _accel_two_tier(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
         grid, params, kernel, delta_sph, False, wrap_axes,
+        "xsph" if xsph else None,
     )
 
 
@@ -743,6 +1046,7 @@ def accel_drho_spill_plain(
     dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
     dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
     grid, params, kernel=WendlandC2, delta_sph=0.1, wrap_axes=None,
+    xsph=False,
 ):
     """Plain version of :func:`accel_drho_spill` (as
     :func:`density_spill_plain`)."""
@@ -750,4 +1054,94 @@ def accel_drho_spill_plain(
         (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
         grid, params, kernel, delta_sph, True, wrap_axes,
+        "xsph" if xsph else None,
+    )
+
+
+def energy_spill(
+    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
+    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
+    grid, params, kernel=WendlandC2, wrap_axes=None,
+):
+    """Two-tier internal-energy rate, the conjugate of
+    :func:`accel_spill`: ``(du_a, du_b)``, each ``[C, K]``.  CPU tensors
+    take the plain pair passes; CUDA tensors launch the energy instance
+    of the momentum kernel four times."""
+    return _accel_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, None, False, wrap_axes, "energy",
+    )
+
+
+def energy_spill_plain(
+    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
+    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
+    grid, params, kernel=WendlandC2, wrap_axes=None,
+):
+    """Plain version of :func:`energy_spill` (as
+    :func:`density_spill_plain`)."""
+    return _accel_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, None, True, wrap_axes, "energy",
+    )
+
+
+def _surface_tension_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b, grid,
+                              params, gamma, kernel, plain, wrap_axes):
+    """Two-tier surface tension ``(AA + AB, BB + BA)`` as ``[C, K, 3]``
+    views: both tiers' normals are complete (their own and the other
+    tier's neighbours) before any force pass.  ``plain`` and
+    ``wrap_axes`` as in :func:`_accel_two_tier`; on the ghost halo the
+    normals are selected back to the interior rows before the force
+    pass expands them again, unshifted (element 1 of its tiers)."""
+    c = grid.n_cells
+    a = (x_a, rho_a[:c], mask_a[:c])
+    b = (x_b, rho_b[:c], mask_b[:c])
+    table_wrap = wrap_axes if plain else None
+
+    def normals(cen, nbr, role, g):
+        args = (cen[0], cen[2], nbr[0], nbr[1], nbr[2], g, params, kernel)
+        if plain:
+            return st_normals_pairs_plain(*args, table_wrap)
+        return st_normals_pairs(*args, cross=role == "cross")
+
+    def force(cen, nbr, role, g):
+        if plain:
+            return st_force_pairs_plain(*cen, *nbr, g, params, gamma, kernel,
+                                        table_wrap)
+        return st_force_pairs(*cen, *nbr, g, params, gamma, kernel,
+                              cross=role == "cross")
+
+    ghost = None if plain else wrap_axes
+    n_a, n_b = _two_tier(normals, a, b, grid, ghost)
+    f_a, f_b = _two_tier(
+        force, (x_a, n_a, a[1], a[2]), (x_b, n_b, b[1], b[2]), grid, ghost
+    )
+    return f_a.permute(1, 2, 0), f_b.permute(1, 2, 0)
+
+
+def surface_tension_spill(dense_x_a, dense_rho_a, mask_a, dense_x_b,
+                          dense_rho_b, mask_b, grid, params, gamma,
+                          kernel=WendlandC2, wrap_axes=None):
+    """Two-tier Akinci surface-tension acceleration of strength
+    ``gamma``: ``(st_a, st_b)``, each ``[C, K, 3]``, from SoA positions
+    ``[3, C, K]``, densities and masks ``[C(+1), K]``.  CPU tensors take
+    the plain pair passes; CUDA tensors launch the normals kernel four
+    times, then the force kernel four times."""
+    return _surface_tension_two_tier(
+        dense_x_a, dense_rho_a, mask_a, dense_x_b, dense_rho_b, mask_b, grid,
+        params, gamma, kernel, False, wrap_axes,
+    )
+
+
+def surface_tension_spill_plain(dense_x_a, dense_rho_a, mask_a, dense_x_b,
+                                dense_rho_b, mask_b, grid, params, gamma,
+                                kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`surface_tension_spill` (as
+    :func:`density_spill_plain`)."""
+    return _surface_tension_two_tier(
+        dense_x_a, dense_rho_a, mask_a, dense_x_b, dense_rho_b, mask_b, grid,
+        params, gamma, kernel, True, wrap_axes,
     )

@@ -10,16 +10,20 @@ Formulation (standard WCSPH):
 * momentum           dv_i/dt = -sum_j m (p_i/rho_i^2 + p_j/rho_j^2
                       + Pi_ij) grad_W_ij + g   (Monaghan artificial
                       viscosity Pi_ij)
-* symplectic Euler (kick-drift) + reflective box walls
+* symplectic Euler (kick-drift) + reflective box walls; the options:
+  XSPH drift smoothing, Akinci surface tension, and the energy rate
 
 All pair interactions happen inside 27-cell neighborhoods of the dense
 cell layout (:mod:`tpgsd_torch.sph.cells`).  The plain pair machinery
 here (:func:`_density_blocks`, :func:`_accel_blocks`,
-:func:`_accel_drho_blocks`) works on the SoA
-layout ``[F, n_cells, K]`` with a centre tier and a neighbour tier, so
-it serves both the single-tier step (the tier is its own neighbour) and
-the plain versions of the pair ops in :mod:`tpgsd_torch.sph.ops`.  On
-CUDA both layouts run the hand-written pair kernels instead.
+:func:`_accel_drho_blocks`, :func:`_xsph_blocks`,
+:func:`_st_normals_blocks`, :func:`_st_force_blocks`,
+:func:`_energy_blocks`) works on the SoA layout ``[F, n_cells, K]`` with
+a centre tier and a neighbour tier, so it serves both the single-tier
+step (the tier is its own neighbour) and the plain versions of the pair
+ops in :mod:`tpgsd_torch.sph.ops`; it evaluates only the cells with a
+live centre.  On CUDA both layouts run the hand-written pair kernels
+instead.
 
 Periodic boundaries reach the plain pair passes as a wrapped neighbour
 table plus minimum-image separations, and the kernels as a pre-shifted
@@ -93,10 +97,13 @@ def _renormalize_density(rho, params):
 _PAIR_PLANE = 1 << 23
 
 
-def _cell_blocks(c, k):
-    """Cell ranges of the plain pair passes."""
+def _cell_blocks(mc):
+    """The cells the plain pair passes evaluate, as index tensors in
+    blocks: those with a live slot in the centre mask ``mc [C, K]`` (a
+    cell without one gives 0)."""
+    k = mc.shape[1]
     block = max(1, _PAIR_PLANE // (27 * k * k))
-    return [(c0, min(c, c0 + block)) for c0 in range(0, c, block)]
+    return torch.split(torch.nonzero(mc.any(dim=1)).squeeze(1), block)
 
 
 def _with_sentinel_cell(a, fill):
@@ -115,12 +122,15 @@ def _gather_nbr(a, nb):
 def _distance(d):
     """``|d|`` over the leading (x, y, z) axis of pair differences.
 
-    The root comes from ``torch.linalg.vector_norm``, not from an
-    elementwise ``torch.sqrt``: on the CPU, float32 ``torch.sqrt`` of a
-    large tensor was seen to return values off by up to 3.3e-4 (relative)
-    over one worker thread's share of the tensor, at the first calls in
-    some processes (ROADMAP "Faults found")."""
-    return torch.linalg.vector_norm(d, dim=0)
+    The root comes from ``torch.hypot``, not from an elementwise
+    ``torch.sqrt``: on the CPU, float32 ``torch.sqrt`` of a large tensor
+    was seen to return values off by up to 3.3e-4 (relative) over one
+    worker thread's share of the tensor, at the first calls in some
+    processes (ROADMAP "Faults found").  ``torch.linalg.vector_norm``
+    over the leading axis avoids that too, but on the CPU it takes about
+    300 times as long as two ``hypot`` calls, which are within 1.2e-7
+    relative of the float64 norm."""
+    return torch.hypot(torch.hypot(d[0], d[1]), d[2])
 
 
 def _min_image(diff, mimage):
@@ -169,42 +179,41 @@ def _density_blocks(xc, mc, xn, mn, nbr, params, kernel, mimage=None):
     c, k = mc.shape
     xn_s = _with_sentinel_cell(xn, 0.0)
     mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
-    out = xc.new_empty((c, k))
-    for c0, c1 in _cell_blocks(c, k):
-        nb = nbr[c0:c1]
+    out = xc.new_zeros((c, k))
+    for cells in _cell_blocks(mc):
+        nb = nbr[cells]
         y = _gather_nbr(xn_s, nb)  # [3, B, 1, 27K]
         ym = _gather_nbr(mn_s, nb)  # [B, 1, 27K]
-        r = _distance(_min_image(xc[:, c0:c1, :, None] - y, mimage))
+        r = _distance(_min_image(xc[:, cells, :, None] - y, mimage))
         w = kernel.w(r, params.h, dim=params.dim) * ym
-        out[c0:c1] = params.mass * torch.sum(w, dim=-1) * mc[c0:c1]
+        out[cells] = params.mass * torch.sum(w, dim=-1) * mc[cells]
     return out
 
 
 def _momentum_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
                      kernel, mimage):
     """Cell blocks of the momentum pair pass of centre tier ``c`` from
-    neighbour tier ``n``: yields ``(c0, c1, dx, dwr, press_pi, vdotx, ym,
-    rhob, rhoy)`` with the :func:`_pair_terms` of cells ``c0:c1``, the
-    neighbours' live mask ``ym [B, 1, 27K]`` and the centre and neighbour
-    densities."""
-    c, k = mc.shape
+    neighbour tier ``n``: yields ``(cells, dx, dwr, press_pi, vdotx, ym,
+    rhob, rhoy)`` with the :func:`_pair_terms` of the ``cells`` (an index
+    tensor, :func:`_cell_blocks`), the neighbours' live mask ``ym [B, 1,
+    27K]`` and the centre and neighbour densities."""
     xn_s = _with_sentinel_cell(xn, 0.0)
     vn_s = _with_sentinel_cell(vn, 0.0)
     rhon_s = _with_sentinel_cell(rhon, params.rho0)
     pn_s = _with_sentinel_cell(pn, 0.0)
     mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
-    for c0, c1 in _cell_blocks(c, k):
-        nb = nbr[c0:c1]
-        rhob = rhoc[c0:c1, :, None]
+    for cells in _cell_blocks(mc):
+        nb = nbr[cells]
+        rhob = rhoc[cells, :, None]
         rhoy = _gather_nbr(rhon_s, nb)
         dx, dwr, press_pi, vdotx = _pair_terms(
-            xc[:, c0:c1, :, None], vc[:, c0:c1, :, None],
-            rhob, pc[c0:c1, :, None],
+            xc[:, cells, :, None], vc[:, cells, :, None],
+            rhob, pc[cells, :, None],
             _gather_nbr(xn_s, nb), _gather_nbr(vn_s, nb),
             rhoy, _gather_nbr(pn_s, nb),
             params, kernel, mimage,
         )
-        yield c0, c1, dx, dwr, press_pi, vdotx, _gather_nbr(mn_s, nb), rhob, rhoy
+        yield cells, dx, dwr, press_pi, vdotx, _gather_nbr(mn_s, nb), rhob, rhoy
 
 
 def _accel_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
@@ -212,14 +221,14 @@ def _accel_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
     """Plain per-slot acceleration (pressure + viscosity) of centre tier
     ``c`` from neighbour tier ``n`` -> ``[3, C, K]``.  Dead slots must
     carry a positive density (the step sets ``rho0``, ``p = 0``)."""
-    out = xc.new_empty((3,) + tuple(mc.shape))
-    for c0, c1, dx, dwr, press_pi, _, ym, _, _ in _momentum_blocks(
+    out = xc.new_zeros((3,) + tuple(mc.shape))
+    for cells, dx, dwr, press_pi, _, ym, _, _ in _momentum_blocks(
         xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
         mimage,
     ):
         scale = -params.mass * press_pi * dwr * ym
         acc = torch.sum(scale * dx, dim=-1)  # [3, B, K]
-        out[:, c0:c1] = acc * mc[c0:c1]
+        out[:, cells] = acc * mc[cells]
     return out
 
 
@@ -236,8 +245,8 @@ def _accel_drho_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
     slots must carry a positive density, as in :func:`_accel_blocks`."""
     eta2 = (0.1 * params.h) ** 2
     dcoef = 2.0 * delta_sph * params.h * params.c0 * params.mass
-    out = xc.new_empty((4,) + tuple(mc.shape))
-    for c0, c1, dx, dwr, press_pi, vdotx, ym, rhob, rhoy in _momentum_blocks(
+    out = xc.new_zeros((4,) + tuple(mc.shape))
+    for cells, dx, dwr, press_pi, vdotx, ym, rhob, rhoy in _momentum_blocks(
         xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
         mimage,
     ):
@@ -247,8 +256,118 @@ def _accel_drho_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr,
         if delta_sph > 0.0:
             r2 = torch.sum(dx * dx, dim=0)
             drho = drho + dcoef * (rhob - rhoy) / rhoy * dwr * r2 / (r2 + eta2)
-        out[:3, c0:c1] = acc * mc[c0:c1]
-        out[3, c0:c1] = torch.sum(drho * ym, dim=-1) * mc[c0:c1]
+        out[:3, cells] = acc * mc[cells]
+        out[3, cells] = torch.sum(drho * ym, dim=-1) * mc[cells]
+    return out
+
+
+def _energy_blocks(xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params,
+                   kernel, mimage=None):
+    """Plain internal-energy rate ``du_i/dt = 1/2 sum_j m (p_i/rho_i^2 +
+    p_j/rho_j^2 + Pi_ij) (v_i - v_j) . grad_W_ij`` of centre tier ``c``
+    from neighbour tier ``n`` -> ``[C, K]``: the conjugate of the
+    momentum equation, built from the same :func:`_pair_terms`
+    (``tpgsd.sph.step._energy_blocks``).  Dead slots as in
+    :func:`_accel_blocks`."""
+    out = xc.new_zeros(tuple(mc.shape))
+    for cells, _, dwr, press_pi, vdotx, ym, _, _ in _momentum_blocks(
+        xc, vc, rhoc, pc, mc, xn, vn, rhon, pn, mn, nbr, params, kernel,
+        mimage,
+    ):
+        du = 0.5 * params.mass * press_pi * dwr * vdotx * ym
+        out[cells] = torch.sum(du, dim=-1) * mc[cells]
+    return out
+
+
+def _xsph_blocks(xc, vc, rhoc, mc, xn, vn, rhon, mn, nbr, params, kernel,
+                 mimage=None):
+    """Plain XSPH drift-velocity correction ``dv_i = sum_j (2 m / (rho_i +
+    rho_j)) (v_j - v_i) W_ij`` of centre tier ``c`` from neighbour tier
+    ``n`` -> ``[3, C, K]`` (``tpgsd.sph.step._xsph_blocks``; note the
+    sign, ``v_j - v_i``).  The pair weight is symmetric and the velocity
+    difference antisymmetric, so the correction carries no momentum."""
+    c, k = mc.shape
+    xn_s = _with_sentinel_cell(xn, 0.0)
+    vn_s = _with_sentinel_cell(vn, 0.0)
+    rhon_s = _with_sentinel_cell(rhon, params.rho0)
+    mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
+    out = xc.new_zeros((3, c, k))
+    for cells in _cell_blocks(mc):
+        nb = nbr[cells]
+        dx = _min_image(xc[:, cells, :, None] - _gather_nbr(xn_s, nb), mimage)
+        w = kernel.w(_distance(dx), params.h, dim=params.dim)
+        coef = (
+            2.0 * params.mass / (rhoc[cells, :, None] + _gather_nbr(rhon_s, nb))
+        ) * w * _gather_nbr(mn_s, nb)
+        dv = _gather_nbr(vn_s, nb) - vc[:, cells, :, None]
+        out[:, cells] = torch.sum(coef * dv, dim=-1) * mc[cells]
+    return out
+
+
+def _cohesion_c(r, hs):
+    """Akinci et al. (2013) cohesion spline ``C(r)`` at support ``hs``
+    with its 3-D normalisation ``32/(pi hs^9)`` (used in 2-D too), as in
+    ``tpgsd.sph.step._cohesion_c``: attractive over ``hs/2 < r <= hs``,
+    repulsive below about ``hs/4``."""
+    c = 32.0 / (np.pi * hs**9)
+    hr = torch.clamp(hs - r, min=0.0)
+    core = hr**3 * r**3
+    outer = torch.where(r <= hs, core, 0.0)
+    inner = 2.0 * core - hs**6 / 64.0
+    return c * torch.where(r > 0.5 * hs, outer, inner)
+
+
+def _st_normals_blocks(xc, mc, xn, rhon, mn, nbr, params, kernel, mimage=None):
+    """Plain Akinci surface normals ``n_i = hs sum_j (m / rho_j) dW/dr / r
+    (x_i - x_j)`` (``hs`` the kernel support) of centre tier ``c`` from
+    neighbour tier ``n`` -> ``[3, C, K]``
+    (``tpgsd.sph.step._st_normals_blocks``).  Dead neighbour slots must
+    carry a positive density."""
+    c, k = mc.shape
+    hs = kernel.support_scale * params.h
+    xn_s = _with_sentinel_cell(xn, 0.0)
+    rhon_s = _with_sentinel_cell(rhon, params.rho0)
+    mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
+    out = xc.new_zeros((3, c, k))
+    for cells in _cell_blocks(mc):
+        nb = nbr[cells]
+        dx = _min_image(xc[:, cells, :, None] - _gather_nbr(xn_s, nb), mimage)
+        dwr = kernel.dw_over_r(_distance(dx), params.h, dim=params.dim)
+        coef = (params.mass / _gather_nbr(rhon_s, nb)) * dwr * _gather_nbr(mn_s, nb)
+        out[:, cells] = hs * torch.sum(coef * dx, dim=-1) * mc[cells]
+    return out
+
+
+def _st_force_blocks(xc, nc, rhoc, mc, xn, nn, rhon, mn, nbr, params, kernel,
+                     gamma, mimage=None):
+    """Plain Akinci surface-tension acceleration ``a_i = -gamma sum_j
+    K_ij [m C(r) (x_i - x_j) / max(r, 1e-12) + (n_i - n_j)]`` with
+    ``K_ij = 2 rho0 / (rho_i + rho_j)``, of centre tier ``c`` (normals
+    ``nc [3, C, K]``) from neighbour tier ``n`` -> ``[3, C, K]``
+    (``tpgsd.sph.step._st_force_blocks``).  The curvature term carries no
+    kernel weight, so, as in the reference, it sums over every live slot
+    of the 27 cells, within the support or not.  The self pair adds
+    exactly 0 (``x_i - x_i = 0``, ``n_i - n_i = 0``)."""
+    c, k = mc.shape
+    hs = kernel.support_scale * params.h
+    xn_s = _with_sentinel_cell(xn, 0.0)
+    nn_s = _with_sentinel_cell(nn, 0.0)
+    rhon_s = _with_sentinel_cell(rhon, params.rho0)
+    mn_s = _with_sentinel_cell(mn.to(xn.dtype), 0.0)
+    out = xc.new_zeros((3, c, k))
+    for cells in _cell_blocks(mc):
+        nb = nbr[cells]
+        dx = _min_image(xc[:, cells, :, None] - _gather_nbr(xn_s, nb), mimage)
+        r = _distance(dx)
+        kij = (
+            2.0 * params.rho0 / (rhoc[cells, :, None] + _gather_nbr(rhon_s, nb))
+        ) * _gather_nbr(mn_s, nb)
+        coh = (-gamma * params.mass * kij * _cohesion_c(r, hs)
+               / torch.clamp(r, min=1e-12))
+        acc = torch.sum(coh * dx, dim=-1)
+        dn = nc[:, cells, :, None] - _gather_nbr(nn_s, nb)
+        acc = acc + torch.sum(-gamma * kij * dn, dim=-1)
+        out[:, cells] = acc * mc[cells]
     return out
 
 
@@ -411,6 +530,59 @@ def init_density(state, grid, params, kernel=WendlandC2, periodic=False,
     return state._replace(rho=rho)
 
 
+@torch.inference_mode()
+def energy_rate(state, grid, params, kernel=WendlandC2, periodic=False,
+                device="cuda"):
+    """Per-particle internal-energy rate du/dt (``[N]`` float32) of a
+    configuration, the physics behind the schema's ``particles/energy``
+    chunk (``tpgsd.sph.step.energy_rate``): the WCSPH energy equation,
+    the pressure-work and viscous-heating conjugate of the momentum
+    equation.  Integrate it beside the step (``u += dt * du``) or dump
+    the rate.
+
+    It runs on the single tier at ``grid.capacity`` (never the spill
+    layout): summation density without renormalisation, floored at
+    ``0.1 rho0``, with ``rho0`` and ``p = 0`` in dead slots, then the
+    energy pass.  On a CUDA ``device`` the density goes through
+    :func:`ops.density` and the energy through the energy instance of
+    the momentum kernel (:func:`ops.energy`; periodic axes as a ghost
+    halo); on the CPU both are the plain passes over the wrapped table.
+    Particles past the capacity get 0.
+    """
+    from . import ops  # ops imports this module's plain pair passes
+
+    dev = _resolve_device(device)
+    if state.x.device != dev:
+        raise ValueError(
+            "energy_rate on %s got a state on %s" % (dev, state.x.device)
+        )
+    use_kernels, _ = resolve_policy(dev.type, grid, spill=False)
+    c = grid.n_cells
+    cells = build_cells(state.x, grid)
+    xv = scatter_to_cells_soa(torch.cat([state.x, state.v], dim=-1), cells,
+                              grid)
+    m = cells.mask[:c]
+    if use_kernels:
+        wrap = _wrap_tuple(grid, periodic)
+        rho = ops.density(xv[:3], m, grid, params, kernel=kernel,
+                          wrap_axes=wrap)
+    else:
+        nbr = neighbor_index(grid, dev, bool(periodic))
+        mimage = minimum_image(grid, dev, bool(periodic))
+        rho = _density_blocks(xv[:3], m, xv[:3], m, nbr, params, kernel,
+                              mimage)
+    rho = torch.where(m, torch.clamp(rho, min=0.1 * params.rho0), params.rho0)
+    p = torch.where(m, tait_pressure(rho, params), 0.0)
+    if use_kernels:
+        du = ops.energy(xv[:3], xv[3:], rho, p, m, grid, params,
+                        kernel=kernel, wrap_axes=wrap)
+    else:
+        du = _energy_blocks(xv[:3], xv[3:], rho, p, m, xv[:3], xv[3:], rho,
+                            p, m, nbr, params, kernel, mimage)
+    return gather_from_cells(torch.cat([du, du.new_zeros((1, du.shape[1]))]),
+                             cells, grid)
+
+
 def _wrap_tuple(grid, periodic):
     """The axes that wrap as the 3-tuple of bools the pair ops take as
     ``wrap_axes`` (``None`` when nothing wraps)."""
@@ -473,8 +645,17 @@ def make_step_fn(
             on the card.  It excludes ``density_renorm``.
         delta_sph: delta-SPH density-diffusion strength (continuity mode
             only; 0.1 is the standard setting, 0 = off).
-        xsph, surface_tension, sharding: not ported yet; each raises
-            ``NotImplementedError`` naming its ROADMAP item.
+        xsph: XSPH drift-velocity smoothing strength (Monaghan's
+            epsilon, typically 0.5; 0 = off): particles drift with ``v +
+            xsph * dv`` (the kick is unchanged).  On the card its three
+            sums ride the momentum kernel's launch (launch keys
+            ``accel_xsph`` and ``accel_drho_xsph``).
+        surface_tension: strength gamma of the Akinci surface-tension
+            model (cohesion and curvature; 0 = off): a normals pass, then
+            a force pass added to the acceleration (the ``st_normals``
+            and ``st_force`` kernels on the card).
+        sharding: not ported; raises ``NotImplementedError`` naming its
+            ROADMAP item.
         device: the device of the states the step takes (the card unless
             the caller asks for ``"cpu"``).
 
@@ -483,10 +664,11 @@ def make_step_fn(
     """
     from . import ops  # ops imports this module's plain pair passes
 
-    if xsph:
-        raise _not_ported("xsph", 5)
-    if surface_tension:
-        raise _not_ported("surface_tension", 5)
+    if xsph < 0 or surface_tension < 0:
+        raise ValueError(
+            "xsph and surface_tension must be >= 0; got %r and %r"
+            % (xsph, surface_tension)
+        )
     continuity = density_mode == "continuity"
     if density_mode not in ("summation", "continuity"):
         raise ValueError("unknown density_mode: %r" % (density_mode,))
@@ -497,7 +679,7 @@ def make_step_fn(
             "delta_sph for its noise control instead"
         )
     if sharding is not None:
-        raise _not_ported("the GSPMD sharding hint", 12)
+        raise _not_ported("the GSPMD sharding hint", 9)
 
     dev = _resolve_device(device)
     use_kernels, spill = resolve_policy(
@@ -523,8 +705,9 @@ def make_step_fn(
 
     def _finish(x, v, out, overflow, rho_cur=None):
         """Integrate/boundary tail: ``out`` is the per-particle gathered
-        bundle [acc3 | rho | p] (summation mode) or [acc3 | drho]
-        (continuity mode, with the prior density as ``rho_cur``)."""
+        bundle [acc3 | rho | p | (xsph dv3)] (summation mode) or [acc3 |
+        drho | (xsph dv3)] (continuity mode, with the prior density as
+        ``rho_cur``)."""
         acc = out[:, :3] + gravity
         if continuity:
             # dropped particles gather drho = 0 from the sentinel row and
@@ -535,9 +718,14 @@ def make_step_fn(
             rho = out[:, 3]
             p = out[:, 4]
 
-        # symplectic Euler: kick then drift
+        # symplectic Euler: kick then drift (XSPH smooths the drift
+        # velocity only; the kick and the bounce keep v_new)
         v_new = (v + dt * acc) * params.velocity_damping
-        x_new = x + dt * v_new
+        if xsph > 0:
+            xsph_cols = out[:, 4:7] if continuity else out[:, 5:8]
+            x_new = x + dt * (v_new + xsph * xsph_cols)
+        else:
+            x_new = x + dt * v_new
 
         # reflective walls with damping (reflect, then clip), except the
         # modular wrap on periodic axes
@@ -589,11 +777,13 @@ def make_step_fn(
         )
 
     def to_particles(acc, rho, p, cells):
-        """:func:`gather_bundle` of the per-slot ``[C, kc, 3]`` acc and
-        ``[C, kc]`` rho and p."""
-        return gather_bundle(
-            torch.cat([acc, rho[..., None], p[..., None]], dim=-1), cells
-        )
+        """:func:`gather_bundle` of the per-slot ``[C, kc, 3]`` acc (``[C,
+        kc, 6]`` with the XSPH correction as columns 3-5) and ``[C, kc]``
+        rho and p."""
+        cols = [acc[..., :3], rho[..., None], p[..., None]]
+        if xsph > 0:
+            cols.append(acc[..., 3:])
+        return gather_bundle(torch.cat(cols, dim=-1), cells)
 
     def _check(state):
         if state.x.device != dev:
@@ -605,6 +795,19 @@ def make_step_fn(
                 "density_mode='continuity' needs state.rho - seed it with "
                 "tpgsd_torch.sph.init_density(state, grid, params)"
             )
+
+    def with_surface_tension(out, st, axis):
+        """``out`` with the surface-tension acceleration ``st`` added to
+        its first three planes along ``axis`` (0: SoA ``[F, C, K]``; -1:
+        ``[C, K, F]``)."""
+        if axis == 0:
+            return torch.cat([out[:3] + st, out[3:]])
+        return torch.cat([out[..., :3] + st, out[..., 3:]], dim=-1)
+
+    surface_tension_spill = (
+        ops.surface_tension_spill if use_kernels
+        else ops.surface_tension_spill_plain
+    )
 
     if spill and continuity:
         accel_drho_spill = (
@@ -626,8 +829,16 @@ def make_step_fn(
                 soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
                 soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
                 grid, params, kernel=kernel, delta_sph=delta_sph,
-                wrap_axes=wrap,
-            )
+                wrap_axes=wrap, xsph=xsph > 0,
+            )  # [C, K, 4 (+3 xsph)]
+            if surface_tension > 0:
+                st_a, st_b = surface_tension_spill(
+                    soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b, sp.mask,
+                    grid, params, surface_tension, kernel=kernel,
+                    wrap_axes=wrap,
+                )
+                out_a = with_surface_tension(out_a, st_a, -1)
+                out_b = with_surface_tension(out_b, st_b, -1)
             out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
             return _finish(x, v, out, cells.overflow, rho_cur=rho)
 
@@ -655,10 +866,18 @@ def make_step_fn(
             acc_a, acc_b = accel_spill(
                 soa_a[:3], soa_a[3:], rho_a, p_a, cells.mask,
                 soa_b[:3], soa_b[3:], rho_b, p_b, sp.mask,
-                grid, params, kernel=kernel, wrap_axes=wrap,
+                grid, params, kernel=kernel, wrap_axes=wrap, xsph=xsph > 0,
             )
+            if surface_tension > 0:
+                st_a, st_b = surface_tension_spill(
+                    soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b, sp.mask,
+                    grid, params, surface_tension, kernel=kernel,
+                    wrap_axes=wrap,
+                )
+                acc_a = with_surface_tension(acc_a, st_a, -1)
+                acc_b = with_surface_tension(acc_b, st_b, -1)
             out = to_particles(
-                torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3]
+                torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3 (+3 xsph)]
                 torch.cat([rho_a, rho_b], dim=1),
                 torch.cat([p_a, p_b], dim=1),
                 cells,
@@ -671,6 +890,7 @@ def make_step_fn(
     # single tier: the kernels (the self role up to K = 64, the wide
     # kernels past it) take the ghost halo, the plain pair passes the
     # wrapped table and minimum image
+    # the momentum passes return [3 or 4 (+3 xsph), C, K]
     if use_kernels:
         def density(dense_x, m):
             return ops.density(
@@ -680,13 +900,19 @@ def make_step_fn(
         def accel(dense_x, dense_v, rho, p, m):
             return ops.accel(
                 dense_x, dense_v, rho, p, m, grid, params, kernel=kernel,
-                wrap_axes=wrap,
+                wrap_axes=wrap, xsph=xsph > 0,
             )
 
         def accel_drho(dense_x, dense_v, rho, p, m):
             return ops.accel_drho(
                 dense_x, dense_v, rho, p, m, grid, params, kernel=kernel,
-                delta_sph=delta_sph, wrap_axes=wrap,
+                delta_sph=delta_sph, wrap_axes=wrap, xsph=xsph > 0,
+            )
+
+        def surface_tension_pass(dense_x, rho, m):
+            return ops.surface_tension(
+                dense_x, rho, m, grid, params, surface_tension,
+                kernel=kernel, wrap_axes=wrap,
             )
     else:
         nbr = neighbor_index(grid, dev, periodic)
@@ -697,16 +923,33 @@ def make_step_fn(
                 dense_x, m, dense_x, m, nbr, params, kernel, mimage
             )
 
+        def with_xsph(out, dense_x, dense_v, rho, m):
+            if xsph > 0:
+                out = torch.cat([out, _xsph_blocks(
+                    dense_x, dense_v, rho, m, dense_x, dense_v, rho, m, nbr,
+                    params, kernel, mimage,
+                )])
+            return out
+
         def accel(dense_x, dense_v, rho, p, m):
-            return _accel_blocks(
+            return with_xsph(_accel_blocks(
                 dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
                 nbr, params, kernel, mimage,
-            )
+            ), dense_x, dense_v, rho, m)
 
         def accel_drho(dense_x, dense_v, rho, p, m):
-            return _accel_drho_blocks(
+            return with_xsph(_accel_drho_blocks(
                 dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
                 nbr, params, kernel, delta_sph, mimage,
+            ), dense_x, dense_v, rho, m)
+
+        def surface_tension_pass(dense_x, rho, m):
+            n = _st_normals_blocks(
+                dense_x, m, dense_x, rho, m, nbr, params, kernel, mimage
+            )
+            return _st_force_blocks(
+                dense_x, n, rho, m, dense_x, n, rho, m, nbr, params, kernel,
+                surface_tension, mimage,
             )
 
     if continuity:
@@ -722,6 +965,10 @@ def make_step_fn(
             m = cells.mask[:c]
             rho_d, p_d = finish_rho(xvr[6], cells.mask)
             out4 = accel_drho(xvr[:3], xvr[3:6], rho_d, p_d, m)
+            if surface_tension > 0:
+                out4 = with_surface_tension(
+                    out4, surface_tension_pass(xvr[:3], rho_d, m), 0
+                )
             out = gather_bundle(out4.permute(1, 2, 0), cells)
             return _finish(x, v, out, cells.overflow, rho_cur=rho)
 
@@ -738,6 +985,10 @@ def make_step_fn(
         m = cells.mask[:c]
         rho, p = finish_rho(density(dense_x, m), cells.mask)
         acc = accel(dense_x, dense_v, rho, p, m)
+        if surface_tension > 0:
+            acc = with_surface_tension(
+                acc, surface_tension_pass(dense_x, rho, m), 0
+            )
         out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
         return _finish(x, v, out, cells.overflow)
 
