@@ -162,16 +162,17 @@ F32_FLOP_PER_S = 67e12
 #: differences 3, three sums 6); the energy pass is the acceleration's 38
 #: less its three sums (6) plus one (2); the normals: differences and r^2
 #: 8, sqrt 1, t^3 5, the divide 1, three sums 6; the force: differences
-#: and r^2 8 and the support test 1, K_ij 2, the normal differences 3,
-#: six sums 12 on every candidate (its curvature term has no kernel
-#: weight), and sqrt 1, u 1, the spline 9 and its divide by max(r) 3 on
-#: the pairs within the support.
+#: and r^2 8 and the support test 1, K_ij 2, the normal differences 3
+#: and their three sums 6 on every candidate (its curvature term has no
+#: kernel weight), and sqrt 1, u 1, the spline 9, its divide by max(r) 3
+#: and the three cohesion sums 6 on the pairs within the support (the
+#: cohesion term is 0 past it).
 FLOP_PER_PAIR = {"density": 19, "accel": 38, "accel_drho": 48,
                  "accel_xsph": 54, "accel_drho_xsph": 64, "energy": 34,
-                 "st_normals": 21, "st_force": 14}
+                 "st_normals": 21, "st_force": 20}
 #: float32 operations per candidate (live centre, live slot of its 27
 #: cells) of the passes that do work beyond the support
-FLOP_PER_CANDIDATE = {"st_force": 26}
+FLOP_PER_CANDIDATE = {"st_force": 20}
 #: float32 input planes a pass reads of each slot
 PLANES_READ = {"density": 3, "st_normals": 4, "st_force": 7}
 #: output planes of each pass
@@ -1666,17 +1667,24 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
              " with %s" % json.dumps(options) if options else "", n, steps,
              wall / steps / 1e3, busy / steps / 1e3, 1.0 - busy / wall,
              outside, card))
-    groups = {}
+    groups, other = {}, {}
     for e in device:
         g = next((name for name, keys in PROFILE_GROUPS
                   if any(k in e.name for k in keys)), "elementwise/other")
         us, count = groups.get(g, (0.0, 0))
         groups[g] = (us + e.time_range.elapsed_us(), count + 1)
+        if g == "elementwise/other":
+            us, count = other.get(e.name, (0.0, 0))
+            other[e.name] = (us + e.time_range.elapsed_us(), count + 1)
     total = sum(us for us, _ in groups.values())
     for g, (us, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print("  %-26s %.4f ms/step (%.1f%% of device time), %.1f "
               "launches/step" % (g, us / steps / 1e3, 100.0 * us / total,
                                  count / steps))
+    # the largest kernels of the catch-all group, by name
+    for name, (us, count) in sorted(other.items(), key=lambda kv: -kv[1][0])[:4]:
+        print("    elementwise/other: %.4f ms/step, %.1f launches/step: %s"
+              % (us / steps / 1e3, count / steps, name[:150]))
 
 
 def check_no_reference_modules():

@@ -922,10 +922,6 @@ def test_option_ghost_halo_matches_wrapped_plain(cuda, capacity):
                                         wrap_axes=wrap, xsph=True)),
             (ops.surface_tension_spill(*st, wrap_axes=wrap),
              ops.surface_tension_spill_plain(*st, wrap_axes=wrap)),
-            (tuple(d[..., None] for d in ops.energy_spill(
-                *ta, *tb, grid, params, wrap_axes=wrap)),
-             tuple(d[..., None] for d in ops.energy_spill_plain(
-                 *ta, *tb, grid, params, wrap_axes=wrap))),
         ]
         lives = (ma.cpu().numpy(), mb.cpu().numpy())
         for got, want in pairs:
@@ -934,7 +930,7 @@ def test_option_ghost_halo_matches_wrapped_plain(cuda, capacity):
                     _scaled_close(got[t][..., col], want[t][..., col],
                                   lives[t], 1e-4, 1e-5)
         want_counts = {f + r: 2 for f in ("accel_xsph", "accel_drho_xsph",
-                                          "st_normals", "st_force", "energy")
+                                          "st_normals", "st_force")
                        for r in ("_self", "_cross")}
     else:
         cells = build_cells(state.x, grid)

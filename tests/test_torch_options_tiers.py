@@ -1,11 +1,12 @@
 """The two-tier passes of the step's XSPH and Akinci surface-tension
-options and of the energy rate in the torch port: the plain two-tier
-passes against the reference's jnp passes on its single tier of twice
-the capacity (slot-identical to the two tiers side by side), closed and
-periodic; and the ghost-halo route of the kernel wrappers (the plain
-passes on the ghost grid, CPU tensors) against the wrapped-table route,
-on one tier up to 64 slots and past them and on two tiers.  The kernels
-meet the same passes on the card (tests/test_torch_cuda.py).
+options in the torch port: the plain two-tier passes against the
+reference's jnp passes on its single tier of twice the capacity
+(slot-identical to the two tiers side by side), closed and periodic;
+and the ghost-halo route of the kernel wrappers (the plain passes on the
+ghost grid, CPU tensors) against the wrapped-table route, on one tier up
+to 64 slots and past them and on two tiers (the energy rate, which runs
+on one tier only, on one tier).  The kernels meet the same passes on
+the card (tests/test_torch_cuda.py).
 
 Tolerances: rtol 1e-4, atol 1e-5 on each column scaled by its max (the
 acceleration tolerance of tests/test_pallas_ops.py); the sums run in
@@ -24,7 +25,6 @@ from tpgsd.sph.cells import neighbor_table as ref_neighbor_table
 from tpgsd.sph.cells import scatter_to_cells as ref_scatter_to_cells
 from tpgsd.sph.kernels import WendlandC2 as RefWendlandC2
 from tpgsd.sph.step import _cohesion_blocks as ref_cohesion_blocks
-from tpgsd.sph.step import _energy_blocks as ref_energy_blocks
 from tpgsd.sph.step import _mimage_of as ref_mimage_of
 from tpgsd.sph.step import _xsph_blocks as ref_xsph_blocks
 from tpgsd_torch.sph import ops, still_box
@@ -88,13 +88,10 @@ def _two_tier_case(periodic, k=24, n_side=10, seed=3):
     assert (live2[:, k:] == mb.numpy()).all()
     rho2 = numpy.concatenate([torch.cat([ra, rb], 1).numpy(),
                               numpy.full((1, 2 * k), params.rho0, numpy.float32)])
-    p2 = numpy.concatenate([torch.cat([pa, pb], 1).numpy(),
-                            numpy.zeros((1, 2 * k), numpy.float32)])
     return {
         "grid": grid, "params": params, "wrap": wrap, "k": k, "live2": live2,
         "a": (a[:3], a[3:], ra, pa, ma), "b": (b[:3], b[3:], rb, pb, mb),
-        "ref": (dense[..., :3], dense[..., 3:], jnp.asarray(rho2),
-                jnp.asarray(p2), cells2.mask,
+        "ref": (dense[..., :3], dense[..., 3:], jnp.asarray(rho2), cells2.mask,
                 ref_neighbor_table(grid2, periodic=periodic)),
         "ref_params": db.params, "mimage": ref_mimage_of(grid2, periodic),
     }
@@ -114,11 +111,11 @@ def _tiers_close(got, want, live2, k, err_msg):
 
 
 @pytest.mark.parametrize("periodic", [False, True], ids=["closed", "periodic"])
-@pytest.mark.parametrize("pass_name", ["xsph", "surface_tension", "energy"])
+@pytest.mark.parametrize("pass_name", ["xsph", "surface_tension"])
 def test_two_tier_passes_match_reference_at_2k(pass_name, periodic):
     s = _two_tier_case(periodic)
     grid, params, wrap, a, b = s["grid"], s["params"], s["wrap"], s["a"], s["b"]
-    rx, rv, rrho, rp, rmask, nbr = s["ref"]
+    rx, rv, rrho, rmask, nbr = s["ref"]
     rparams, mimage = s["ref_params"], s["mimage"]
     if pass_name == "xsph":
         got = ops.accel_spill_plain(*a, *b, grid, params, wrap_axes=wrap,
@@ -127,16 +124,12 @@ def test_two_tier_passes_match_reference_at_2k(pass_name, periodic):
         want = ref_xsph_blocks(rx, rv, rrho, rmask, nbr, rparams, RefWendlandC2,
                                32, mimage=mimage)
         got = tuple(g[..., 3:] for g in got)
-    elif pass_name == "surface_tension":
+    else:
         got = ops.surface_tension_spill_plain(
             a[0], a[2], a[4], b[0], b[2], b[4], grid, params, GAMMA,
             wrap_axes=wrap)
         want = ref_cohesion_blocks(rx, rrho, rmask, nbr, rparams, RefWendlandC2,
                                    32, GAMMA, mimage=mimage)
-    else:
-        got = ops.energy_spill_plain(*a, *b, grid, params, wrap_axes=wrap)
-        want = ref_energy_blocks(rx, rv, rrho, rp, rmask, nbr, rparams,
-                                 RefWendlandC2, 32, mimage=mimage)
     _tiers_close(got, want, s["live2"], s["k"], pass_name)
 
 
@@ -176,8 +169,13 @@ def _periodic_box(capacity, seed=11):
     return grid, params, wrap, tiers
 
 
-@pytest.mark.parametrize("layout", ["single", "wide", "spill"])
-@pytest.mark.parametrize("pass_name", ["xsph", "surface_tension", "energy"])
+@pytest.mark.parametrize(
+    "pass_name, layout",
+    [(p, lay) for p in ("xsph", "surface_tension", "energy")
+     for lay in ("single", "wide", "spill")
+     if (p, lay) != ("energy", "spill")],  # energy runs on one tier only
+    ids=lambda v: v,
+)
 def test_ghost_route_matches_wrapped_table(pass_name, layout):
     """The wrappers' periodic route (ghost-cell halo, the plain passes on
     the ghost grid, interior rows selected back; the normals are selected
@@ -194,13 +192,10 @@ def test_ghost_route_matches_wrapped_table(pass_name, layout):
             got = ops.accel_spill(*a, *b, grid, params, wrap_axes=wrap, xsph=True)
             want = ops.accel_spill_plain(*a, *b, grid, params, wrap_axes=wrap,
                                          xsph=True)
-        elif pass_name == "surface_tension":
+        else:
             args = (a[0], a[2], a[4], b[0], b[2], b[4], grid, params, GAMMA)
             got = ops.surface_tension_spill(*args, wrap_axes=wrap)
             want = ops.surface_tension_spill_plain(*args, wrap_axes=wrap)
-        else:
-            got = ops.energy_spill(*a, *b, grid, params, wrap_axes=wrap)
-            want = ops.energy_spill_plain(*a, *b, grid, params, wrap_axes=wrap)
         pairs = [(g, w, t[4].numpy()) for g, w, t in zip(got, want, tiers)]
     else:
         (t,) = tiers

@@ -953,8 +953,8 @@ def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain, wrap_axes,
     """Two-tier sums ``(AA + AB, BB + BA)`` of the momentum pass, or with
     ``delta_sph`` (a number, 0 included) of the fused momentum +
     continuity pass, over tiers ``a`` and ``b`` (each ``(x, v, rho, p,
-    mask)``), as ``[C, K, F]`` views of the SoA sums (``extra`` as in
-    :func:`_launch_accel`; the energy pass gives ``[C, K]``).  ``plain``
+    mask)``), as ``[C, K, F]`` views of the SoA sums (``extra`` ``None``
+    or ``"xsph"``, as in :func:`_launch_accel`).  ``plain``
     takes the plain pair passes with ``wrap_axes`` in the neighbour table
     and the minimum image; otherwise ``wrap_axes`` is the ghost halo, on
     which CPU tensors take the plain pair passes and CUDA tensors launch
@@ -982,8 +982,6 @@ def _accel_two_tier(a, b, grid, params, kernel, delta_sph, plain, wrap_axes,
     out_a, out_b = _two_tier(
         pairs, a, b, grid, None if plain else wrap_axes
     )
-    if extra == "energy":
-        return out_a, out_b
     return out_a.permute(1, 2, 0), out_b.permute(1, 2, 0)
 
 
@@ -1055,36 +1053,6 @@ def accel_drho_spill_plain(
         (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
         grid, params, kernel, delta_sph, True, wrap_axes,
         "xsph" if xsph else None,
-    )
-
-
-def energy_spill(
-    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
-    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2, wrap_axes=None,
-):
-    """Two-tier internal-energy rate, the conjugate of
-    :func:`accel_spill`: ``(du_a, du_b)``, each ``[C, K]``.  CPU tensors
-    take the plain pair passes; CUDA tensors launch the energy instance
-    of the momentum kernel four times."""
-    return _accel_two_tier(
-        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
-        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
-        grid, params, kernel, None, False, wrap_axes, "energy",
-    )
-
-
-def energy_spill_plain(
-    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
-    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
-    grid, params, kernel=WendlandC2, wrap_axes=None,
-):
-    """Plain version of :func:`energy_spill` (as
-    :func:`density_spill_plain`)."""
-    return _accel_two_tier(
-        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
-        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
-        grid, params, kernel, None, True, wrap_axes, "energy",
     )
 
 

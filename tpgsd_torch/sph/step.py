@@ -796,14 +796,6 @@ def make_step_fn(
                 "tpgsd_torch.sph.init_density(state, grid, params)"
             )
 
-    def with_surface_tension(out, st, axis):
-        """``out`` with the surface-tension acceleration ``st`` added to
-        its first three planes along ``axis`` (0: SoA ``[F, C, K]``; -1:
-        ``[C, K, F]``)."""
-        if axis == 0:
-            return torch.cat([out[:3] + st, out[3:]])
-        return torch.cat([out[..., :3] + st, out[..., 3:]], dim=-1)
-
     surface_tension_spill = (
         ops.surface_tension_spill if use_kernels
         else ops.surface_tension_spill_plain
@@ -837,8 +829,9 @@ def make_step_fn(
                     grid, params, surface_tension, kernel=kernel,
                     wrap_axes=wrap,
                 )
-                out_a = with_surface_tension(out_a, st_a, -1)
-                out_b = with_surface_tension(out_b, st_b, -1)
+                # added in place to the acceleration columns
+                out_a[..., :3] += st_a
+                out_b[..., :3] += st_b
             out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
             return _finish(x, v, out, cells.overflow, rho_cur=rho)
 
@@ -874,8 +867,8 @@ def make_step_fn(
                     grid, params, surface_tension, kernel=kernel,
                     wrap_axes=wrap,
                 )
-                acc_a = with_surface_tension(acc_a, st_a, -1)
-                acc_b = with_surface_tension(acc_b, st_b, -1)
+                acc_a[..., :3] += st_a
+                acc_b[..., :3] += st_b
             out = to_particles(
                 torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3 (+3 xsph)]
                 torch.cat([rho_a, rho_b], dim=1),
@@ -966,9 +959,7 @@ def make_step_fn(
             rho_d, p_d = finish_rho(xvr[6], cells.mask)
             out4 = accel_drho(xvr[:3], xvr[3:6], rho_d, p_d, m)
             if surface_tension > 0:
-                out4 = with_surface_tension(
-                    out4, surface_tension_pass(xvr[:3], rho_d, m), 0
-                )
+                out4[:3] += surface_tension_pass(xvr[:3], rho_d, m)
             out = gather_bundle(out4.permute(1, 2, 0), cells)
             return _finish(x, v, out, cells.overflow, rho_cur=rho)
 
@@ -986,9 +977,7 @@ def make_step_fn(
         rho, p = finish_rho(density(dense_x, m), cells.mask)
         acc = accel(dense_x, dense_v, rho, p, m)
         if surface_tension > 0:
-            acc = with_surface_tension(
-                acc, surface_tension_pass(dense_x, rho, m), 0
-            )
+            acc[:3] += surface_tension_pass(dense_x, rho, m)
         out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
         return _finish(x, v, out, cells.overflow)
 
