@@ -30,6 +30,16 @@ the 1M dam break steps with ``xsph=0.5, surface_tension=0.05`` on both
 layouts in both modes with the dump, ``energy_rate`` runs at 1M, their
 kernel steps are held against the plain steps at 100k, and their roles
 and steps are timed.
+Phase 8 drives the long-run time loop at 1M: the adaptive step
+(``make_adaptive_step_fn``) at ``dt == params.dt`` bit-identical to the
+fixed step with the same launches on both layouts in both modes (then
+both timed and the adaptive one profiled); a 200-step ``run_adaptive``
+rollout of the spill step under ``torch.cuda.set_sync_debug_mode("error")``
+(no host sync), its dts and ``t`` checked; the same rollout with in-loop
+dumps (``scan_simulate_adaptive``, a frame every 10th step) read back
+against the rollout without a dump; ``resume`` from that file with 10
+more steps appended; and ``dam_break(on_device=True)`` against the host
+lattice.
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -53,7 +63,11 @@ import torch
 import tpgsd_torch.hoomd
 from tpgsd_torch import _build
 from tpgsd_torch.entry import entry
-from tpgsd_torch.io_runtime import AsyncDumpRunner
+from tpgsd_torch.io_runtime import (
+    AsyncDumpRunner,
+    JitDumpChannel,
+    scan_simulate_adaptive,
+)
 from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
 from tpgsd_torch.sph import (
     CubicSpline,
@@ -61,8 +75,11 @@ from tpgsd_torch.sph import (
     dam_break,
     energy_rate,
     init_density,
+    make_adaptive_step_fn,
     make_step_fn,
     ops,
+    resume,
+    run_adaptive,
     still_box,
     taylor_green,
 )
@@ -77,6 +94,7 @@ from tpgsd_torch.sph.step import (
     _cell_blocks,
     _gather_nbr,
     _with_sentinel_cell,
+    initial_dt,
     neighbor_index,
     tait_pressure,
 )
@@ -89,6 +107,9 @@ N_BOX_1M = 100  # n_side of the 1,000,000-particle periodic still box
 N_BOX_64K = 40  # n_side of the 64,000-particle periodic still box
 N_VORTEX = 512  # n_side of the 262,144-particle 2-D Taylor-Green vortex
 DELTA_SPH = 0.1  # make_step_fn's default delta-SPH strength
+N_ROLLOUT = 200  # steps of phase 8's adaptive rollouts
+DUMP_EVERY = 10  # their dump cadence
+N_RESUMED = 10  # steps after the resume
 KERNELS = [
     # name, launch-count key, TPU kernel it replaces, the path that counts it
     ("density_pairs (self)", "density_self", "tpgsd/sph/pallas_ops.py:739",
@@ -842,21 +863,22 @@ PATHS_MODES = ("summation", "continuity")
 
 
 def configuration(layout, n_side, dev, density_mode, plain=False,
-                  options=None):
+                  options=None, adaptive=False):
     """``(step, state)`` of one of the driven configurations through the
     entry points a user calls, with the "auto" policies (``plain``: the
     plain pair passes instead: on the single tier, which for the periodic
     two-tier layout is the slot-identical tier of twice the capacity; for
     the flagship the plain spill ops on its own grid; ``options``: more
     ``make_step_fn`` arguments, the flagship then built as ``entry``
-    builds it):
+    builds it; ``adaptive``: the step of ``make_adaptive_step_fn`` on the
+    same grid, ``step(state, dt) -> (state, aux, dt_next)``):
 
     * ``"spill"``: the flagship, dam break on the two-tier layout;
     * ``"wide"``: the dam break on the single tier at K = 128;
     * ``"periodic spill"`` / ``"periodic wide"``: the periodic still box,
       capacity from ``"auto"`` clamped to 24-64 as ``entry`` does, or 128.
     """
-    if layout == "spill" and not plain and not options:
+    if layout == "spill" and not (plain or options or adaptive):
         step, (state,) = entry(n_side=n_side, device=dev,
                                density_mode=density_mode)
         return step, state
@@ -879,9 +901,10 @@ def configuration(layout, n_side, dev, density_mode, plain=False,
         kw = {"use_kernels": False, "spill": layout == "spill"}
         if layout == "periodic spill":
             grid = grid._replace(capacity=2 * grid.capacity)
-    step = make_step_fn(grid, sc.params, periodic=periodic,
-                        density_mode=density_mode, device=dev, **kw,
-                        **(options or {}))
+    build = make_adaptive_step_fn if adaptive else make_step_fn
+    step = build(grid, sc.params, periodic=periodic,
+                 density_mode=density_mode, device=dev, **kw,
+                 **(options or {}))
     want = {"use_kernels": not plain,
             "spill": layout == "spill" or not (plain or wide),
             "density_mode": density_mode}
@@ -1123,15 +1146,24 @@ def phase_kernel_vs_plain_step(dev, density_mode, layout="spill",
     return step_k, step_p, state
 
 
-def run_counted(step, state, n_steps):
-    """``n_steps`` steps with the launch counts set to 0 just before;
+def advance(step, state, dt=None):
+    """One step of a fixed step (``dt`` None) or of an adaptive one at
+    ``dt``: ``(state, aux, dt_next)`` (``dt_next`` None for the fixed)."""
+    if dt is None:
+        return (*step(state), None)
+    return step(state, dt)
+
+
+def run_counted(step, state, n_steps, dt=None):
+    """``n_steps`` steps (of an adaptive step each at ``dt``, not at the
+    controller's choice) with the launch counts set to 0 just before;
     returns the final state, the last aux and the counts, and raises on
     overflow."""
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     overflow = []
     for _ in range(n_steps):
-        state, aux = step(state)
+        state, aux, _ = advance(step, state, dt)
         overflow.append(aux[2])
     torch.cuda.synchronize()
     if int(torch.stack(overflow).sum()):
@@ -1357,12 +1389,13 @@ def tile_note(family, grid, params):
         ops.tile_shared_bytes(family, grid, params))
 
 
-def step_ms(step, state, reps, warmup):
-    """Mean device milliseconds of one step over ``reps`` steps."""
-    box = [state]
+def step_ms(step, state, reps, warmup, dt0=None):
+    """Mean device milliseconds of one step over ``reps`` steps (of an
+    adaptive step from ``dt0``, carrying the controller's dt)."""
+    box = [state, None if dt0 is None else device_dt(dt0, state)]
 
     def run():
-        box[0], _ = step(box[0])
+        box[0], _, box[1] = advance(step, box[0], box[1])
 
     return cuda_ms(run, reps, warmup)
 
@@ -1622,9 +1655,10 @@ def _union_us(spans):
 
 
 def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
-                  warmup=5, options=None):
+                  warmup=5, options=None, dt0=None, tag="phase 7"):
     """Phase 7: one torch.profiler trace of ``steps`` steps of a
-    ``configuration`` (``options`` as there).
+    ``configuration`` (``options`` as there; with ``dt0`` its adaptive
+    step, carrying the controller's dt from ``dt0``).
     The device busy time (union of the device activity) and the wall
     time both come from that trace: wall is the span of a host region
     that ends with a device sync.  The profiler slows the host side, so
@@ -1633,15 +1667,16 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
     from torch.profiler import ProfilerActivity, profile, record_function
 
     step, state = configuration(layout, n_side, dev, density_mode,
-                                options=options)
+                                options=options, adaptive=dt0 is not None)
     n = state.x.shape[0]
+    dt = None if dt0 is None else device_dt(dt0, state)
     for _ in range(warmup):
-        state, _aux = step(state)
+        state, _aux, dt = advance(step, state, dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("tpgsd_torch.profiled_steps"):
             for _ in range(steps):
-                state, _aux = step(state)
+                state, _aux, dt = advance(step, state, dt)
             torch.cuda.synchronize()
     events = prof.events()
     # the host region (the trace also mirrors it on the device timeline)
@@ -1660,10 +1695,11 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
     busy = _union_us([(s, e) for s, e in inside if e > s])
     wall = t1 - t0
     outside = sum(1 for s, e in inside if e <= s)
-    print("phase 7 (%s %s%s): N=%d profiled %d steps: wall %.4f ms/step, "
+    print("%s (%s%s %s%s): N=%d profiled %d steps: wall %.4f ms/step, "
           "device busy %.4f ms/step, idle share %.4f (%d device events "
           "outside the region) [%s]"
-          % (layout, density_mode,
+          % (tag, "adaptive " if dt0 is not None else "", layout,
+             density_mode,
              " with %s" % json.dumps(options) if options else "", n, steps,
              wall / steps / 1e3, busy / steps / 1e3, 1.0 - busy / wall,
              outside, card))
@@ -1685,6 +1721,289 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
     for name, (us, count) in sorted(other.items(), key=lambda kv: -kv[1][0])[:4]:
         print("    elementwise/other: %.4f ms/step, %.1f launches/step: %s"
               % (us / steps / 1e3, count / steps, name[:150]))
+
+
+def device_dt(dt0, state):
+    """``dt0`` as the 0-d float32 tensor on the state's device that an
+    adaptive step takes."""
+    return initial_dt(dt0, state.x.device)[0]
+
+
+def phase_adaptive_vs_fixed(dev, card, params):
+    """Phase 8: the adaptive step at ``dt == params.dt`` against the fixed
+    step at 1M, on both layouts in both modes: 3 steps each, bit-identical
+    positions, velocities and density, the same launch counts; then both
+    timed (CUDA events) and the adaptive step profiled as phase 7 profiles
+    the fixed one."""
+    for layout in ("spill", "wide"):
+        for mode in PATHS_MODES:
+            tag = "phase 8 (%s %s)" % (layout, mode)
+            step_f, state = configuration(layout, N_1M, dev, mode)
+            step_a, state_a = configuration(layout, N_1M, dev, mode,
+                                            adaptive=True)
+            if step_a.resolved != step_f.resolved or not all(
+                    torch.equal(a, b) for a, b in zip(state, state_a)
+                    if a is not None):
+                raise AssertionError("%s: the adaptive configuration differs"
+                                     % tag)
+            del state_a
+            dt = device_dt(params.dt, state)
+            s_f, aux_f, counts_f = run_counted(step_f, state, 3)
+            s_a, aux_a, counts_a = run_counted(step_a, state, 3, dt)
+            path = ("wide " if layout == "wide" else "") + mode
+            want = {k: 3 * v for k, v in PATHS[path]["per_step"].items()}
+            if counts_f != want or counts_a != want:
+                raise AssertionError("%s: launches fixed %s, adaptive %s, "
+                                     "expected %s" % (tag, counts_f, counts_a,
+                                                      want))
+            for name, a, b in (("positions", s_a.x, s_f.x),
+                               ("velocities", s_a.v, s_f.v),
+                               ("density", aux_a[0], aux_f[0])):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        "%s: adaptive %s differ from the fixed step's at dt "
+                        "== params.dt (max %g)"
+                        % (tag, name, float((a - b).abs().max())))
+            del s_f, s_a, aux_f, aux_a
+            fixed_ms = step_ms(step_f, state, 20, 3)
+            adaptive_ms = step_ms(step_a, state, 20, 3, dt0=params.dt)
+            print("%s: N=%d, 3 steps at dt == params.dt bit-identical to the "
+                  "fixed step, launches %s each; fixed %.4f ms/step, adaptive "
+                  "%.4f ms/step (+%.4f; CUDA events over 20 steps) [%s]"
+                  % (tag, state.x.shape[0], json.dumps(counts_a), fixed_ms,
+                     adaptive_ms, adaptive_ms - fixed_ms, card))
+            del step_f, step_a, state
+            phase_profile(dev, card, layout, N_1M, mode, dt0=params.dt,
+                          tag="phase 8")
+
+
+def controller_bound(step_state, dt_next, params, cfl):
+    """Which condition set ``dt_next``, recomputed on the device from the
+    state the step returned: ``"ceiling"`` (params.dt), ``"Courant"`` (h /
+    (c0 + max|v|)) or ``"force"`` (sqrt(h / max|a|)), as the controller
+    of ``make_adaptive_step_fn`` computes them."""
+    v2max = torch.amax(torch.sum(step_state.v * step_state.v, dim=-1))
+    vmax = torch.sqrt(torch.clamp(v2max, min=1e-30))
+    courant = torch.clamp(cfl * torch.div(params.h, params.c0 + vmax),
+                          min=0.0, max=params.dt)
+    if float(dt_next) == float(np.float32(params.dt)):
+        return "ceiling"
+    return "Courant" if torch.equal(courant, dt_next) else "force"
+
+
+def phase_rollout(dev, card, params, mode, cfl=0.25):
+    """Phase 8: a 200-step adaptive rollout of the 1M spill step in
+    ``mode`` through ``run_adaptive`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), replayed
+    step by step (the dts, the states every 10th step); the same rollout
+    through ``scan_simulate_adaptive`` with a frame every 10th step into
+    the port's writer, read back against the replay; in continuity mode a
+    ``resume`` from that file, 10 more steps appended, held against 10
+    steps of the in-memory state."""
+    tag = "phase 8 (spill %s rollout)" % mode
+    step, state0 = configuration("spill", N_1M, dev, mode, adaptive=True)
+    n = state0.x.shape[0]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_run, dt_run, t_run = run_adaptive(step, state0, params.dt, N_ROLLOUT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts.items() if v}
+    want = {k: N_ROLLOUT * v for k, v in PATHS[mode]["per_step"].items()}
+    if counts != want:
+        raise AssertionError("%s: launches %s, expected %s"
+                             % (tag, counts, want))
+
+    # the replay: each dt taken, the states the dump will hold
+    dts, kept, overflow = [], {}, []
+    s, dt = state0, device_dt(params.dt, state0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(N_ROLLOUT):
+            dts.append(dt)
+            s, aux, dt = step(s, dt)
+            overflow.append(aux[2])
+            if i % DUMP_EVERY == 0:
+                kept[i] = (s, aux[0])
+            if i == N_ROLLOUT - DUMP_EVERY:
+                dt_resume = dt  # the dt of step i + 1, kept on the device
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dts = torch.stack(dts).cpu().numpy()
+    if int(torch.stack(overflow).sum()):
+        raise AssertionError("%s: overflow" % tag)
+    if not (torch.equal(s.x, s_run.x) and torch.equal(s.v, s_run.v)
+            and torch.equal(dt, dt_run)):
+        raise AssertionError("%s: run_adaptive differs from its replay" % tag)
+    dt_cap = np.float32(params.dt)
+    if not ((dts > 0).all() and (dts <= dt_cap).all()):
+        raise AssertionError("%s: a dt outside (0, params.dt]: %s"
+                             % (tag, dts[(dts <= 0) | (dts > dt_cap)][:4]))
+    t_host = np.float32(0.0)
+    for d in dts:
+        t_host = np.float32(t_host + d)
+    if t_run.cpu().numpy() != t_host:
+        raise AssertionError("%s: t %r is not the float32 sum of the dts %r"
+                             % (tag, float(t_run), float(t_host)))
+    if not all(bool(torch.isfinite(a).all()) for a in s_run if a is not None):
+        raise AssertionError("%s: the state is not finite" % tag)
+    ratio = dts / dt_cap
+    speed = torch.linalg.vector_norm(s_run.v, dim=1)
+    print("%s: N=%d, %d steps through run_adaptive with no host sync "
+          "(sync debug mode \"error\") in %.3f s (%.4f ms/step, host clock), "
+          "launches %s, overflow 0, state finite; dt/params.dt min %.4f, "
+          "median %.4f, max %.4f; t = %.6f s, the float32 sum of the dts "
+          "bit for bit; at the end the %s condition bound, |v| max %.4g, "
+          "99.9th percentile %.4g, median %.4g m/s (c0 %.4g) [%s]"
+          % (tag, n, N_ROLLOUT, wall, 1e3 * wall / N_ROLLOUT,
+             json.dumps(counts), ratio.min(), np.median(ratio), ratio.max(),
+             float(t_run), controller_bound(s_run, dt_run, params, cfl),
+             float(speed.max()), float(torch.quantile(speed, 0.999)),
+             float(speed.median()), params.c0, card))
+    del s, speed
+
+    names = ["particles/position", "particles/velocity", "particles/density"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rollout.gsd")
+        writer = ShardedFrameWriter(
+            path, application="tpgsd_torch.chip_smoke", comm=SingleComm(),
+            static={"configuration/box": np.array(
+                [2.0, 1.0, 1.0, 0.0, 0.0, 0.0], np.float32)},
+        )
+        channel = JitDumpChannel(writer, names)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        s_d, dt_d, t_d = scan_simulate_adaptive(
+            step, state0, params.dt, N_ROLLOUT, channel,
+            lambda st, aux: [st.x, st.v, aux[0]], every=DUMP_EVERY,
+        )
+        channel.close()
+        wall = time.perf_counter() - t0
+        dump_counts = {k: v for k, v in ops.launch_counts.items() if v}
+        if dump_counts != want:
+            raise AssertionError("%s: launches with the dump %s" % (tag,
+                                                                    dump_counts))
+        if not (torch.equal(s_d.x, s_run.x) and torch.equal(s_d.v, s_run.v)
+                and torch.equal(dt_d, dt_run) and torch.equal(t_d, t_run)):
+            raise AssertionError("%s: scan_simulate_adaptive's state, dt or "
+                                 "t differ from run_adaptive's" % tag)
+        del s_d, s_run
+        stats = channel.stats
+        print("%s: scan_simulate_adaptive, %d steps with a frame every %dth "
+              "(%d frames of %d chunks) in %.3f s (%.4f ms/step incl. dump), "
+              "dump %.1f MB/s effective, %.1f MB/s while writing, overlap "
+              "%.3f [%s]"
+              % (tag, N_ROLLOUT, DUMP_EVERY, stats.frames, len(names), wall,
+                 1e3 * wall / N_ROLLOUT, stats.effective_mb_s,
+                 stats.write_mb_s, stats.overlap_efficiency, card))
+        frame_steps = list(range(0, N_ROLLOUT, DUMP_EVERY))
+        with tpgsd_torch.hoomd.open(path, mode="r") as traj:
+            steps = [int(f.configuration.step) for f in traj]
+            if steps != frame_steps:
+                raise AssertionError("%s: frame steps %s" % (tag, steps))
+            for frame, i in zip(traj, frame_steps):
+                (st, rho) = kept[i]
+                for got, want_t in ((frame.particles.position, st.x),
+                                    (frame.particles.velocity, st.v),
+                                    (frame.particles.density, rho)):
+                    if not np.array_equal(got, want_t.cpu().numpy()):
+                        raise AssertionError(
+                            "%s: frame of step %d differs from the state "
+                            "after %d steps without a dump" % (tag, i, i + 1))
+        print("%s: file read back: %d frames, steps 0, %d, ..., %d; frame i "
+              "bit-equal to the state after i + 1 steps of the rollout "
+              "without a dump" % (tag, len(frame_steps), DUMP_EVERY,
+                                  frame_steps[-1]))
+        if mode == "continuity":
+            resume_phase(tag, step, path, kept[frame_steps[-1]][0],
+                         frame_steps[-1], dt_resume, card)
+
+
+def resume_phase(tag, step, path, state_last, last_step, dt_resume, card):
+    """Resume the continuity rollout's file onto the card, run 10 adaptive
+    steps from the dt the rollout kept, a frame appended each step, and
+    hold them against 10 steps of the in-memory state."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, step_no, writer, _ = resume(path, comm=SingleComm(),
+                                       device=state_last.x.device,
+                                       density_mode="continuity")
+    torch.cuda.synchronize()
+    resume_ms = 1e3 * (time.perf_counter() - t0)
+    if step_no != last_step:
+        raise AssertionError("%s: resumed at step %d" % (tag, step_no))
+    for a, b in zip(state, state_last):
+        if not torch.equal(a, b):
+            raise AssertionError("%s: the resumed state differs from the "
+                                 "last frame's" % tag)
+    s, dt = state, dt_resume
+    with writer:
+        for j in range(N_RESUMED):
+            s, _aux, dt = step(s, dt)
+            writer.write_frame({"particles/position": s.x,
+                                "particles/velocity": s.v,
+                                "particles/density": s.rho},
+                               step=last_step + 1 + j)
+    s_mem, dt_mem, _t = run_adaptive(step, state_last, dt_resume, N_RESUMED)
+    for name, a, b in (("positions", s.x, s_mem.x),
+                       ("velocities", s.v, s_mem.v)):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+            raise AssertionError("%s: resumed %s off by %g" % (
+                tag, name, float((a - b).abs().max())))
+    identical = (torch.equal(s.x, s_mem.x) and torch.equal(s.v, s_mem.v)
+                 and torch.equal(s.rho, s_mem.rho) and torch.equal(dt, dt_mem))
+    want_steps = (list(range(0, last_step + 1, DUMP_EVERY))
+                  + list(range(last_step + 1, last_step + 1 + N_RESUMED)))
+    with tpgsd_torch.hoomd.open(path, mode="r") as traj:
+        steps = [int(f.configuration.step) for f in traj]
+        last = traj[-1].particles.position
+    if steps != want_steps or not np.array_equal(last, s.x.cpu().numpy()):
+        raise AssertionError("%s: after resume the file holds steps %s"
+                             % (tag, steps))
+    print("%s: resume of the frame of step %d (N=%d) onto the card in %.3f "
+          "ms (file read included), state bit-equal to the frame; %d "
+          "adaptive steps from the kept dt appended (file: %d frames, steps "
+          "in order), within rtol 1e-5, atol 1e-6 of %d steps of the "
+          "in-memory state, %s [%s]"
+          % (tag, last_step, s.x.shape[0], resume_ms, N_RESUMED,
+             len(want_steps), N_RESUMED,
+             "bit-identical" if identical else "not bit-identical", card))
+
+
+def phase_lattice(dev, card):
+    """Phase 8: the 1M dam break's lattice built on the card against the
+    host lattice: the same count, grid and capacity, positions within
+    1e-6; both build times (host clock, device synchronised), twice."""
+    times = {False: [], True: []}
+    for on_device in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db = dam_break(n_side=N_1M, capacity="auto", capacity_headroom=1.15,
+                       device=dev, on_device=on_device)
+        torch.cuda.synchronize()
+        times[on_device].append(1e3 * (time.perf_counter() - t0))
+        if not on_device:
+            host = db
+            continue
+        if (db.n, db.grid, db.params) != (host.n, host.grid, host.params):
+            raise AssertionError("on-device lattice: n %d grid %s, host n %d "
+                                 "grid %s" % (db.n, db.grid, host.n, host.grid))
+        if not (torch.allclose(db.state.x, host.state.x, rtol=0, atol=1e-6)
+                and not db.state.v.any()):
+            raise AssertionError("on-device lattice positions differ")
+    print("phase 8 (lattice): dam_break(n_side=%d, capacity=\"auto\", "
+          "capacity_headroom=1.15): N=%d, grid %s, K=%d on the card and on "
+          "the host, positions within 1e-6; host lattice %s ms, on-device "
+          "%s ms (two calls each) [%s]"
+          % (N_1M, db.n, "x".join(map(str, db.grid.dims)), db.grid.capacity,
+             " / ".join("%.3f" % t for t in times[False]),
+             " / ".join("%.3f" % t for t in times[True]), card))
 
 
 def check_no_reference_modules():
@@ -1748,6 +2067,12 @@ def main():
         phase_profile(dev, card, layout, N_1M, mode)
     for mode in PATHS_MODES:
         phase_profile(dev, card, "spill", N_1M, mode, options=OPTIONS)
+    t8 = time.perf_counter()
+    phase_adaptive_vs_fixed(dev, card, params)
+    for mode in PATHS_MODES:
+        phase_rollout(dev, card, params, mode)
+    phase_lattice(dev, card)
+    print("phase 8 ran %.1f s" % (time.perf_counter() - t8))
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"

@@ -1042,3 +1042,69 @@ def test_energy_rate_on_the_card_matches_the_plain_pass(cuda, capacity,
     want = energy_rate(SPHState(x=state.x.cpu(), v=state.v.cpu()), grid,
                        params, periodic=periodic, device="cpu")
     _scaled_close(got, want, numpy.ones(tuple(want.shape), bool), 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+@pytest.mark.parametrize("capacity", [24, 128], ids=["spill", "wide"])
+def test_adaptive_kernel_step_matches_fixed_and_never_syncs(
+        cuda, capacity, density_mode):
+    """On the card the adaptive step at ``dt == params.dt`` is the fixed
+    step bit for bit with the same launches, and a ``run_adaptive``
+    rollout makes no host sync (``set_sync_debug_mode("error")``)."""
+    from tpgsd_torch.sph import make_adaptive_step_fn, run_adaptive
+
+    db = dam_break(n_side=10, capacity=capacity, device=cuda)
+    kw = {"density_mode": density_mode, "device": cuda}
+    step_f = make_step_fn(db.grid, db.params, **kw)
+    step_a = make_adaptive_step_fn(db.grid, db.params, **kw)
+    assert step_a.resolved == step_f.resolved
+    assert step_a.resolved["spill"] == (capacity == 24)
+    state = db.state
+    if density_mode == "continuity":
+        state = init_density(state, db.grid, db.params, device=cuda)
+    dt = torch.full((), db.params.dt, device=cuda)
+    counts = []
+    s_f = s_a = state
+    for which in ("fixed", "adaptive"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for _ in range(3):
+            if which == "fixed":
+                s_f, aux_f = step_f(s_f)
+            else:
+                s_a, aux_a, _ = step_a(s_a, dt)
+        torch.cuda.synchronize()
+        counts.append(_launched())
+    assert counts[0] == counts[1] and counts[0]
+    assert torch.equal(s_a.x, s_f.x) and torch.equal(s_a.v, s_f.v)
+    assert torch.equal(aux_a[0], aux_f[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, dt_next, t = run_adaptive(step_a, state, db.params.dt, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(s.x).all()
+    assert 0.0 < float(dt_next) <= db.params.dt
+    assert 0.0 < float(t) <= 5 * db.params.dt
+
+
+@pytest.mark.cuda
+def test_on_device_lattice_and_resume_on_the_card(cuda, tmp_path):
+    """``dam_break(on_device=True)`` on the card against the host lattice,
+    and a ``resume`` onto the card of the frame it dumped."""
+    from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
+    from tpgsd_torch.sph import resume
+
+    host = dam_break(n_side=20, capacity="auto", device=cuda)
+    card = dam_break(n_side=20, capacity="auto", device=cuda, on_device=True)
+    assert (card.n, card.grid, card.params) == (host.n, host.grid, host.params)
+    assert torch.allclose(card.state.x, host.state.x, rtol=0, atol=1e-6)
+    path = tmp_path / "lattice.gsd"
+    with ShardedFrameWriter(path, comm=SingleComm()) as writer:
+        writer.write_frame({"particles/position": card.state.x,
+                            "particles/velocity": card.state.v}, step=4)
+    state, step, writer, _ = resume(path, comm=SingleComm())
+    writer.close()
+    assert step == 4 and state.x.is_cuda
+    assert torch.equal(state.x, card.state.x)

@@ -148,7 +148,8 @@ def test_port_sources_import_no_jax_and_no_jax_package_modules():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|tpgsd)(\.|\s|$)", re.M
     )
-    sources = sorted((REPO / "tpgsd_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted((REPO / "tpgsd_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "examples" / "dam_break_demo_torch.py"]
     assert len(sources) > 20
     offending = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offending == []

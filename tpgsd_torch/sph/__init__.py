@@ -5,6 +5,14 @@ on the two-tier spill layout, closed and periodic boxes, with the XSPH
 and Akinci surface-tension options and :func:`energy_rate`; the pair
 passes of both layouts run as hand-written CUDA kernels on the card
 (:mod:`tpgsd_torch.sph.ops`).
+
+The long-run time loop: :func:`make_adaptive_step_fn` (the CFL
+controller, ``dt`` a 0-d device tensor) rolled out by
+:func:`run_adaptive` without a host sync, in-loop dumps through
+:mod:`tpgsd_torch.io_runtime` (``scan_simulate``,
+``scan_simulate_adaptive``), :func:`resume` from the last frame of a
+trajectory, and ``dam_break(on_device=True)``, the lattice built on the
+card.
 """
 
 from .cells import (
@@ -18,6 +26,7 @@ from .cells import (
     scatter_to_cells,
     scatter_to_cells_soa,
 )
+from .checkpoint import resume
 from .dam_break import DamBreak, dam_break
 from .kernels import CubicSpline, WendlandC2
 from .scenarios import (
@@ -34,7 +43,9 @@ from .step import (
     density_and_pressure,
     energy_rate,
     init_density,
+    make_adaptive_step_fn,
     make_step_fn,
+    run_adaptive,
     tait_pressure,
 )
 
@@ -56,9 +67,12 @@ __all__ = [
     "gather_from_cells",
     "hydrostatic_tank",
     "init_density",
+    "make_adaptive_step_fn",
     "make_grid",
     "make_step_fn",
     "neighbor_table",
+    "resume",
+    "run_adaptive",
     "scatter_to_cells",
     "scatter_to_cells_soa",
     "still_box",

@@ -13,6 +13,7 @@ map here equals the reference slot for slot (same stable sort, same
 run starts); indices are int64, the torch index type.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -97,12 +98,22 @@ def neighbor_table(grid, periodic=False):
     return lin.astype(np.int32)
 
 
+@functools.lru_cache(maxsize=16)
+def cell_bounds(grid, device, dtype):
+    """``(lo [3] of dtype, last cell index per axis [3] int64)`` of
+    ``grid`` on ``device``, made once per grid, device and dtype (callers
+    must not write to them): a step builds its cells without a
+    host-to-device copy, which on the card would wait for the device."""
+    lo = torch.tensor(grid.lo, dtype=dtype, device=device)
+    hi_idx = torch.tensor(
+        [d - 1 for d in grid.dims], dtype=torch.int64, device=device
+    )
+    return lo, hi_idx
+
+
 def cell_id(x, grid):
     """Linear (x-major) cell id of each position, clipped into the grid."""
-    lo = torch.tensor(grid.lo, dtype=x.dtype, device=x.device)
-    hi_idx = torch.tensor(
-        [d - 1 for d in grid.dims], dtype=torch.int64, device=x.device
-    )
+    lo, hi_idx = cell_bounds(grid, x.device, x.dtype)
     idx3 = torch.floor((x - lo) / grid.cell_size).to(torch.int64)
     idx3 = torch.minimum(torch.clamp(idx3, min=0), hi_idx)
     _, ny, nz = grid.dims
@@ -152,7 +163,7 @@ def _sorted_slot_map(cid, n_query, capacity):
     starts = torch.searchsorted(
         cid_s, torch.arange(n_query, dtype=cid_s.dtype, device=dev)
     )
-    counts = torch.diff(starts, append=starts.new_tensor([n]))
+    counts = torch.diff(starts, append=starts.new_full((1,), n))
     kslots = torch.arange(capacity, dtype=torch.int64, device=dev)
     valid = kslots[None, :] < torch.clamp(counts, max=capacity)[:, None]
     gidx = torch.where(valid, starts[:, None] + kslots[None, :], n)
@@ -207,7 +218,7 @@ def build_cells_spill(x, grid, k_spill):
     )
     gidx, mask = _with_sentinel(gidx, valid, n)
 
-    counts = torch.diff(starts, append=starts.new_tensor([n]))
+    counts = torch.diff(starts, append=starts.new_full((1,), n))
     ks2 = k + torch.arange(k_spill, dtype=torch.int64, device=x.device)
     valid2 = ks2[None, :] < torch.clamp(counts, max=k + k_spill)[:, None]
     gidx2 = torch.where(valid2, starts[:, None] + ks2[None, :], n)
@@ -246,7 +257,7 @@ def scatter_to_cells_soa(values, cells, grid, slot_base=0, capacity=None):
     k = grid.capacity if capacity is None else capacity
     vs = values[cells.order].to(torch.float32)
     vs_t = torch.cat([vs, vs.new_zeros((1, vs.shape[1]))]).t().contiguous()
-    counts = torch.diff(cells.starts, append=cells.starts.new_tensor([n]))
+    counts = torch.diff(cells.starts, append=cells.starts.new_full((1,), n))
     js = slot_base + torch.arange(k, dtype=torch.int64, device=values.device)
     idx = torch.where(
         js[None, :] < counts[:, None], cells.starts[:, None] + js[None, :], n

@@ -1,0 +1,86 @@
+"""Checkpoint / resume for simulation dump loops (torch counterpart of
+``tpgsd.sph.checkpoint``).
+
+The trajectory file *is* the checkpoint (the reference notes the same
+usage for restart files, reference: pgsd/pgsd/pgsd.h:442-449): every
+``end_frame`` is a crash-consistent restart point, and append mode
+continues exactly after the last complete frame (reference:
+pgsd/pgsd/pgsd.c:1630-1639 frame-counter derivation).
+
+:func:`resume` reads the last frame back through the port's
+:class:`~tpgsd_torch.parallel.ShardedTrajectoryReader` onto a device and
+returns the writer positioned to append.  The decomposed resumes
+(``resume_distributed*``) wait for the port's decompositions.
+"""
+
+from ..parallel.shard_io import ShardedFrameWriter, ShardedTrajectoryReader
+from .step import SPHState
+
+
+def _require_density(f, last, name):
+    """Guard for continuity-mode resume: the last frame must carry the
+    ``particles/density`` chunk (the evolved density IS state there -
+    re-summing it from positions would discard the advected field)."""
+    if not f.chunk_exists(last, "particles/density"):
+        raise ValueError(
+            "density_mode='continuity' resume needs a particles/density "
+            "chunk in the last frame of %s - dump the carried density "
+            "alongside positions, or seed with tpgsd_torch.sph.init_density "
+            "instead" % (name,)
+        )
+
+
+def resume(name, *, comm, device="cuda", extra_chunks=(),
+           application="tpgsd.sph", density_mode="summation"):
+    """Resume a dump loop from the last complete frame of ``name``.
+
+    Args:
+        name: trajectory file path (must exist and hold >= 1 frame).
+        comm: the communicator (required, as the reader's and writer's
+            are; ``SingleComm()`` in one process).  Each process reads
+            its own row stripe, all rows with ``SingleComm``.
+        device: where the state is placed (the card unless the caller
+            asks for ``"cpu"``).
+        extra_chunks: more chunk names to load beside position and
+            velocity.
+        application: the writer's application name.
+        density_mode: ``"continuity"`` also loads the last frame's
+            ``particles/density`` chunk into ``state.rho`` (the carried
+            density a continuity-mode step needs; raises if the frame has
+            none).
+
+    Returns:
+        ``(state, step, writer, extras)``: the :class:`SPHState` of the
+        last frame on ``device``, its ``configuration/step`` value (or
+        ``nframes - 1``), a :class:`ShardedFrameWriter` opened in append
+        mode whose next ``write_frame`` lands at ``frame == nframes``, and
+        a dict of the extra chunks.
+    """
+    continuity = density_mode == "continuity"
+    with ShardedTrajectoryReader(name, comm=comm, device=device) as reader:
+        if reader.nframes == 0:
+            raise ValueError("cannot resume from an empty trajectory: " + str(name))
+        last = reader.nframes - 1
+        want = ["particles/position", "particles/velocity"]
+        if continuity:
+            _require_density(reader.file, last, name)
+            want.append("particles/density")
+        chunks = {
+            k: tensor
+            for k, (_start, tensor) in reader.read_frame(
+                last, want + list(extra_chunks)
+            ).items()
+        }
+        if reader.file.chunk_exists(last, "configuration/step"):
+            step = int(reader.file.read_chunk(last, "configuration/step")[0])
+        else:
+            step = last
+    state = SPHState(
+        x=chunks["particles/position"],
+        v=chunks["particles/velocity"],
+        rho=chunks["particles/density"] if continuity else None,
+    )
+    writer = ShardedFrameWriter(name, mode="a", application=application,
+                                comm=comm)
+    extras = {k: chunks[k] for k in extra_chunks}
+    return state, step, writer, extras

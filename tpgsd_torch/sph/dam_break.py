@@ -1,9 +1,11 @@
 """Dam-break scenario (torch counterpart of ``tpgsd.sph.dam_break``).
 
 A block of fluid at rest in one corner of a box collapses under gravity.
-The lattice is built on the host exactly as the reference builds it
-(bit-identical positions, grid and parameters) and then placed on
-``device``.
+By default the lattice is built on the host exactly as the reference
+builds its host lattice (bit-identical positions, grid and parameters)
+and then placed on ``device``; ``on_device=True`` builds it on
+``device`` from ``torch.arange``, as the reference builds its iota
+lattice.
 """
 
 import math
@@ -14,6 +16,22 @@ import torch
 
 from .cells import auto_capacity, make_grid
 from .step import SPHParams, SPHState
+
+
+def _lattice_capacity(grid, counts, dx, headroom):
+    """``capacity="auto"`` of the lattice without its positions
+    (``tpgsd.sph.dam_break``'s on-device sizing): per axis, cell ``j``
+    spans ``[j c, (j + 1) c)`` and holds the lattice planes ``(i + 0.5)
+    dx`` inside it, so the densest cell is the product of each axis's
+    largest plane count, scanned over a few hundred cells."""
+    m0 = 1
+    for d in range(3):
+        j = np.arange(grid.dims[d], dtype=np.float64)
+        lo_i = np.maximum(np.ceil(j * grid.cell_size / dx - 0.5), 0)
+        hi_i = np.minimum(np.ceil((j + 1) * grid.cell_size / dx - 0.5),
+                          counts[d])
+        m0 *= int(np.maximum(hi_i - lo_i, 0).max())
+    return max(8, int(-(-headroom * m0 // 8) * 8))
 
 
 class DamBreak(NamedTuple):
@@ -34,6 +52,7 @@ def dam_break(
     c0=None,
     capacity_headroom=1.5,
     device="cuda",
+    on_device=False,
 ):
     """Build a dam-break initial condition on ``device``.
 
@@ -50,6 +69,13 @@ def dam_break(
             sizes the main tier of the two-tier spill layout).
         device: where the state tensors live (the card unless the caller
             asks for ``"cpu"``).
+        on_device: build the lattice on ``device`` (no host meshgrid and
+            no host-to-device copy of the positions) and size
+            ``capacity="auto"`` from the lattice geometry, an exact scan
+            over the cells of each axis.  The positions are ``(i + 0.5)
+            dx`` in float32 there, in float64 rounded to float32 on the
+            host: equal within 1e-6, not bit for bit; the grid and the
+            capacity are the same.
 
     Returns:
         :class:`DamBreak` with ``n = prod(block_dims)`` particles.
@@ -68,16 +94,32 @@ def dam_break(
         c0 = 10.0 * max(v_max, 1.0)
     dt = 0.25 * h / c0  # CFL on the sound speed
 
-    axes = [(np.arange(c) + 0.5) * dx for c in counts]
-    gx, gy, gz = np.meshgrid(*axes, indexing="ij")
-    x0 = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1).astype(
-        np.float32
-    )
-    if capacity == "auto":
-        capacity = auto_capacity(
-            x0, (0.0, 0.0, 0.0), box, support, headroom=capacity_headroom
+    if on_device:
+        if capacity == "auto":
+            capacity = _lattice_capacity(
+                make_grid((0.0, 0.0, 0.0), box, support, 8), counts, dx,
+                capacity_headroom,
+            )
+        # the reference's iota lattice: particle i at (ix, iy, iz) of the
+        # x-major block, at (idx + 0.5) dx in float32
+        cy, cz = counts[1], counts[2]
+        i = torch.arange(n, dtype=torch.int32, device=device)
+        ix = i // (cy * cz)
+        rem = i - ix * (cy * cz)
+        iy = rem // cz
+        iz = rem - iy * cz
+        x = (torch.stack([ix, iy, iz], dim=1).to(torch.float32) + 0.5) * dx
+    else:
+        axes = [(np.arange(c) + 0.5) * dx for c in counts]
+        gx, gy, gz = np.meshgrid(*axes, indexing="ij")
+        x0 = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1).astype(
+            np.float32
         )
-    x = torch.from_numpy(x0).to(device)
+        if capacity == "auto":
+            capacity = auto_capacity(
+                x0, (0.0, 0.0, 0.0), box, support, headroom=capacity_headroom
+            )
+        x = torch.from_numpy(x0).to(device)
     state = SPHState(x=x, v=torch.zeros_like(x))
 
     grid = make_grid((0.0, 0.0, 0.0), box, support, capacity)

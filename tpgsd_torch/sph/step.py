@@ -39,6 +39,7 @@ import torch
 from .cells import (
     build_cells,
     build_cells_spill,
+    cell_bounds,
     gather_from_cells,
     neighbor_table,
     scatter_to_cells_soa,
@@ -605,6 +606,7 @@ def make_step_fn(
     delta_sph=0.1,
     sharding=None,
     device="cuda",
+    _traced_dt=False,
 ):
     """Build the SPH step for states on ``device``.
 
@@ -661,6 +663,13 @@ def make_step_fn(
 
     The returned function carries ``resolved = {"use_kernels", "spill",
     "density_mode"}``.
+
+    The step is ``step(state, dt=params.dt)``: ``dt`` may be a 0-d
+    float32 tensor on ``device`` (the same arithmetic as the float, so
+    ``dt == params.dt`` gives the same bits).  The private
+    ``_traced_dt=True`` (:func:`make_adaptive_step_fn`) makes it return
+    ``(state, aux, a2max)``, ``a2max`` the 0-d max of ``|a|^2`` over the
+    mobile particles (gravity included), the controller's force input.
     """
     from . import ops  # ops imports this module's plain pair passes
 
@@ -698,16 +707,16 @@ def make_step_fn(
     lo = torch.from_numpy(lo_np).to(dev)
     hi = torch.from_numpy(hi_np).to(dev)
     gravity = torch.from_numpy(np.asarray(params.gravity, np.float32)).to(dev)
-    dt = params.dt
+    cell_bounds(grid, dev, torch.float32)  # made now, not in the step
     periodic = bool(periodic)
     wrap = _wrap_tuple(grid, periodic)  # the ops' ghost-halo axes
     wrapped_axes = torch.from_numpy(wrap_axes(grid, periodic)).to(dev)
 
-    def _finish(x, v, out, overflow, rho_cur=None):
+    def _finish(x, v, out, overflow, dt, rho_cur=None):
         """Integrate/boundary tail: ``out`` is the per-particle gathered
         bundle [acc3 | rho | p | (xsph dv3)] (summation mode) or [acc3 |
         drho | (xsph dv3)] (continuity mode, with the prior density as
-        ``rho_cur``)."""
+        ``rho_cur``); ``dt`` is ``params.dt`` or a 0-d device tensor."""
         acc = out[:, :3] + gravity
         if continuity:
             # dropped particles gather drho = 0 from the sentinel row and
@@ -749,6 +758,11 @@ def make_step_fn(
             x_new = torch.cat([x[:n_fixed], x_new[n_fixed:]])
             v_new = torch.cat([v.new_zeros((n_fixed, 3)), v_new[n_fixed:]])
         state = SPHState(x=x_new, v=v_new, rho=rho if continuity else None)
+        if _traced_dt:
+            # the mobile particles' largest |a|^2: fixed boundary slots
+            # never move, so they cannot limit the step
+            a2 = torch.sum(acc * acc, dim=-1)
+            return state, (rho, p, overflow), torch.amax(a2[n_fixed:])
         return state, (rho, p, overflow)
 
     def finish_rho(rho, mask):
@@ -807,7 +821,7 @@ def make_step_fn(
         )
 
         @torch.inference_mode()
-        def step_continuity_spill(state):
+        def step_continuity_spill(state, dt=params.dt):
             _check(state)
             x, v, rho = state.x, state.v, state.rho
             cells, sp = build_cells_spill(x, grid, k)
@@ -833,7 +847,7 @@ def make_step_fn(
                 out_a[..., :3] += st_a
                 out_b[..., :3] += st_b
             out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
-            return _finish(x, v, out, cells.overflow, rho_cur=rho)
+            return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
 
         step_continuity_spill.resolved = resolved
         return step_continuity_spill
@@ -843,7 +857,7 @@ def make_step_fn(
         accel_spill = ops.accel_spill if use_kernels else ops.accel_spill_plain
 
         @torch.inference_mode()
-        def step_spill(state):
+        def step_spill(state, dt=params.dt):
             _check(state)
             x, v = state.x, state.v
             cells, sp = build_cells_spill(x, grid, k)
@@ -875,7 +889,7 @@ def make_step_fn(
                 torch.cat([p_a, p_b], dim=1),
                 cells,
             )
-            return _finish(x, v, out, cells.overflow)
+            return _finish(x, v, out, cells.overflow, dt)
 
         step_spill.resolved = resolved
         return step_spill
@@ -948,7 +962,7 @@ def make_step_fn(
     if continuity:
 
         @torch.inference_mode()
-        def step_continuity(state):
+        def step_continuity(state, dt=params.dt):
             _check(state)
             x, v, rho = state.x, state.v, state.rho
             cells = build_cells(x, grid)
@@ -961,13 +975,13 @@ def make_step_fn(
             if surface_tension > 0:
                 out4[:3] += surface_tension_pass(xvr[:3], rho_d, m)
             out = gather_bundle(out4.permute(1, 2, 0), cells)
-            return _finish(x, v, out, cells.overflow, rho_cur=rho)
+            return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
 
         step_continuity.resolved = resolved
         return step_continuity
 
     @torch.inference_mode()
-    def step(state):
+    def step(state, dt=params.dt):
         _check(state)
         x, v = state.x, state.v
         cells = build_cells(x, grid)
@@ -979,7 +993,105 @@ def make_step_fn(
         if surface_tension > 0:
             acc[:3] += surface_tension_pass(dense_x, rho, m)
         out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
-        return _finish(x, v, out, cells.overflow)
+        return _finish(x, v, out, cells.overflow, dt)
 
     step.resolved = resolved
     return step
+
+
+def make_adaptive_step_fn(grid, params, cfl=0.25, dt_min=0.0, dt_max=None,
+                          **kwargs):
+    """Build a CFL-adaptive variant of the SPH step
+    (``tpgsd.sph.step.make_adaptive_step_fn``).
+
+    Each step advances by the ``dt`` it is given and returns the
+    controller's choice for the next one (Monaghan 1992)::
+
+        dt_f  = sqrt(h / max_i |a_i|)          # force condition
+        dt_cv = h / (c0 + max_i |v_i|)         # Courant + advection
+        dt    = clamp(cfl * min(dt_f, dt_cv), dt_min, dt_max)
+
+    ``max |a|`` is over the mobile particles of the step just taken and
+    ``max |v|`` over the new state, with the reference's ``1e-30`` floors
+    under both square roots.  ``dt`` and ``dt_next`` are 0-d float32
+    tensors on the step's device and the controller is device
+    arithmetic: choosing ``dt`` never waits for the card, so a rollout
+    (:func:`run_adaptive`) queues step after step without a host sync.
+
+    Args:
+        grid / params: as :func:`make_step_fn`; ``params.dt`` seeds a
+            rollout and, by default, caps ``dt_next``.
+        cfl: safety factor on the CFL minimum.
+        dt_min: floor on ``dt_next`` (0 = none).
+        dt_max: ceiling on ``dt_next`` (default ``params.dt``).
+        **kwargs: forwarded to :func:`make_step_fn` (``n_fixed``,
+            ``periodic``, ``xsph``, ``density_mode``, ``spill``,
+            ``device``, ...).
+
+    Returns:
+        ``step(state, dt) -> (state, (rho, p, overflow), dt_next)``,
+        carrying ``resolved`` as :func:`make_step_fn`'s step does.
+    """
+    base = make_step_fn(grid, params, _traced_dt=True, **kwargs)
+    h = float(params.h)
+    c0 = float(params.c0)
+    if dt_max is None:
+        dt_max = float(params.dt)
+
+    @torch.inference_mode()
+    def step(state, dt):
+        new_state, aux, a2max = base(state, dt)
+        amax = torch.sqrt(torch.clamp(a2max, min=1e-30))
+        v2max = torch.amax(torch.sum(new_state.v * new_state.v, dim=-1))
+        vmax = torch.sqrt(torch.clamp(v2max, min=1e-30))
+        dt_f = torch.sqrt(torch.div(h, amax))
+        dt_cv = torch.div(h, c0 + vmax)
+        dt_next = torch.clamp(
+            cfl * torch.minimum(dt_f, dt_cv), min=dt_min, max=dt_max
+        )
+        return new_state, aux, dt_next
+
+    step.resolved = base.resolved
+    return step
+
+
+def initial_dt(dt0, device):
+    """``dt0`` as the 0-d float32 tensor on ``device`` that starts an
+    adaptive rollout, and the rollout's time so far, ``0`` (a tensor
+    ``dt0`` is taken as it is, moved if it lies elsewhere).  Made by fill
+    kernels, not host-to-device copies, so neither waits for the card."""
+    if isinstance(dt0, torch.Tensor):
+        dt = dt0.to(device=device, dtype=torch.float32)
+    else:
+        dt = torch.full((), dt0, dtype=torch.float32, device=device)
+    return dt, torch.zeros((), dtype=torch.float32, device=device)
+
+
+@torch.inference_mode()
+def run_adaptive(step_fn, state, dt0, n_steps):
+    """Roll an adaptive step out for ``n_steps`` steps
+    (``tpgsd.sph.step.run_adaptive``; there a ``lax.scan``, here an eager
+    loop).
+
+    The carry ``(state, dt, t)`` stays on the device: step ``i`` advances
+    by the carry's ``dt`` and the controller's ``dt_next`` becomes step
+    ``i + 1``'s.  Nothing in the loop reads a device value on the host.
+
+    Args:
+        step_fn: from :func:`make_adaptive_step_fn`.
+        state: initial :class:`SPHState`.
+        dt0: the first step's dt (e.g. ``params.dt``; a float or a 0-d
+            tensor, such as a ``dt_next`` kept from an earlier rollout).
+        n_steps: number of steps.
+
+    Returns:
+        ``(state, dt_next, t)``: the final state, the controller's next
+        dt and the simulated time, the float32 sum of the dts taken
+        (both 0-d device tensors).
+    """
+    dt, t = initial_dt(dt0, state.x.device)
+    for _ in range(int(n_steps)):
+        state, _aux, dt_next = step_fn(state, dt)
+        t = t + dt
+        dt = dt_next
+    return state, dt, t
