@@ -40,18 +40,38 @@ dumps (``scan_simulate_adaptive``, a frame every 10th step) read back
 against the rollout without a dump; ``resume`` from that file with 10
 more steps appended; and ``dam_break(on_device=True)`` against the host
 lattice.
+Phase 9 drives the slab-sequential step (``make_slab_step_fn``): one
+slab kernel step against one slab plain step at 113,568 particles on 4
+slabs (spill K = 32 and 24, single tier K = 128, both modes: all nine
+kernel roles on a slab's extended grid; positions, velocities and
+density compared); the slab step against the
+global step at 1,064,800 particles on 12 slabs, 3 steps, both layouts
+and modes (bit-identity reported); 20 silent slab steps under
+``torch.cuda.set_sync_debug_mode("error")`` and a profile; the global
+step's peak bytes a particle at 1M and the N at which it would fill the
+card; and the reference's 1e8-particle cycle
+(``benchmarks/benchmark_bigcycle.py --n-side 400 --slabs 32 --spill``):
+100,000,000 particles on 32 slabs, timed silent steps in both modes
+with their peak memory and a profile, the three two-tier pair passes
+against their plain versions on the extended grids of three slabs of
+the stepped 1e8 state (the first, the water column's front, and one
+midway), a 3-step cycle streaming one
+position + velocity frame through ``SlabDumpChannel``, resumed, stepped
+once more and checked by ``tpgsd_torch.pypgsd.verify(deep=True)``.
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
 
 The second-to-last line of standard output is a JSON object with one
-entry per kernel role; the last line is the run's result:
+entry per kernel role (``slab_launches``: its launches in the 4 silent
+steps a mode of the 1e8 cycle); the last line is the run's result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -61,11 +81,13 @@ import numpy as np
 import torch
 
 import tpgsd_torch.hoomd
+import tpgsd_torch.pypgsd
 from tpgsd_torch import _build
 from tpgsd_torch.entry import entry
 from tpgsd_torch.io_runtime import (
     AsyncDumpRunner,
     JitDumpChannel,
+    SlabDumpChannel,
     scan_simulate_adaptive,
 )
 from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
@@ -76,16 +98,20 @@ from tpgsd_torch.sph import (
     energy_rate,
     init_density,
     make_adaptive_step_fn,
+    make_slab_step_fn,
     make_step_fn,
     ops,
     resume,
     run_adaptive,
+    slab_init_density,
     still_box,
     taylor_green,
 )
+from tpgsd_torch.sph.bigstep import slab_tiers
 from tpgsd_torch.sph.cells import (
     build_cells,
     build_cells_spill,
+    cell_id,
     gather_from_cells,
     scatter_to_cells_soa,
     wrap_axes,
@@ -110,6 +136,12 @@ DELTA_SPH = 0.1  # make_step_fn's default delta-SPH strength
 N_ROLLOUT = 200  # steps of phase 8's adaptive rollouts
 DUMP_EVERY = 10  # their dump cadence
 N_RESUMED = 10  # steps after the resume
+#: phase 9's slab configurations: (n_side, particles, grid, slabs)
+SLAB_100K = (42, 113568, (40, 20, 20), 4)
+SLAB_1M = (88, 1064800, (84, 42, 42), 12)
+#: the reference's 1e8-particle cycle (benchmarks/benchmark_bigcycle.py
+#: --n-side 400 --slabs 32 --spill)
+SLAB_1E8 = (400, 100000000, (384, 192, 192), 32)
 KERNELS = [
     # name, launch-count key, TPU kernel it replaces, the path that counts it
     ("density_pairs (self)", "density_self", "tpgsd/sph/pallas_ops.py:739",
@@ -1658,25 +1690,38 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
                   warmup=5, options=None, dt0=None, tag="phase 7"):
     """Phase 7: one torch.profiler trace of ``steps`` steps of a
     ``configuration`` (``options`` as there; with ``dt0`` its adaptive
-    step, carrying the controller's dt from ``dt0``).
-    The device busy time (union of the device activity) and the wall
-    time both come from that trace: wall is the span of a host region
-    that ends with a device sync.  The profiler slows the host side, so
-    the idle share is that of the profiled run."""
+    step, carrying the controller's dt from ``dt0``), read by
+    :func:`profile_run`."""
+    step, state = configuration(layout, n_side, dev, density_mode,
+                                options=options, adaptive=dt0 is not None)
+    box = [state, None if dt0 is None else device_dt(dt0, state)]
+
+    def run():
+        box[0], _aux, box[1] = advance(step, box[0], box[1])
+
+    label = "%s%s %s%s" % ("adaptive " if dt0 is not None else "", layout,
+                           density_mode,
+                           " with %s" % json.dumps(options) if options else "")
+    profile_run(run, state.x.shape[0], steps, warmup, tag, label, card)
+
+
+def profile_run(run, n, steps, warmup, tag, label, card):
+    """One torch.profiler trace of ``steps`` calls of ``run`` (one step
+    each) after ``warmup`` calls.  The device busy time (union of the
+    device activity) and the wall time both come from that trace: wall
+    is the span of a host region that ends with a device sync.  The
+    profiler slows the host side, so the idle share is that of the
+    profiled run.  Prints the device time by kernel group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    step, state = configuration(layout, n_side, dev, density_mode,
-                                options=options, adaptive=dt0 is not None)
-    n = state.x.shape[0]
-    dt = None if dt0 is None else device_dt(dt0, state)
     for _ in range(warmup):
-        state, _aux, dt = advance(step, state, dt)
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("tpgsd_torch.profiled_steps"):
             for _ in range(steps):
-                state, _aux, dt = advance(step, state, dt)
+                run()
             torch.cuda.synchronize()
     events = prof.events()
     # the host region (the trace also mirrors it on the device timeline)
@@ -1695,14 +1740,11 @@ def phase_profile(dev, card, layout, n_side, density_mode, steps=10,
     busy = _union_us([(s, e) for s, e in inside if e > s])
     wall = t1 - t0
     outside = sum(1 for s, e in inside if e <= s)
-    print("%s (%s%s %s%s): N=%d profiled %d steps: wall %.4f ms/step, "
-          "device busy %.4f ms/step, idle share %.4f (%d device events "
-          "outside the region) [%s]"
-          % (tag, "adaptive " if dt0 is not None else "", layout,
-             density_mode,
-             " with %s" % json.dumps(options) if options else "", n, steps,
-             wall / steps / 1e3, busy / steps / 1e3, 1.0 - busy / wall,
-             outside, card))
+    print("%s (%s): N=%d profiled %d steps: wall %.4f ms/step, device "
+          "busy %.4f ms/step, idle share %.4f (%d device events outside "
+          "the region) [%s]"
+          % (tag, label, n, steps, wall / steps / 1e3, busy / steps / 1e3,
+             1.0 - busy / wall, outside, card))
     groups, other = {}, {}
     for e in device:
         g = next((name for name, keys in PROFILE_GROUPS
@@ -2006,6 +2048,447 @@ def phase_lattice(dev, card):
              " / ".join("%.3f" % t for t in times[True]), card))
 
 
+def slab_dam_break(config, dev, on_device=False):
+    """The dam break of a phase 9 configuration, its size and grid
+    checked."""
+    n_side, n, dims, _ = config
+    db = dam_break(n_side=n_side, capacity="auto", capacity_headroom=1.15,
+                   device=dev, on_device=on_device)
+    if (db.n, tuple(db.grid.dims), db.grid.capacity) != (n, dims, 32):
+        raise AssertionError("dam_break(n_side=%d): N=%d, grid %s, K=%d"
+                             % (n_side, db.n, db.grid.dims, db.grid.capacity))
+    return db
+
+
+def slab_launches(layout, mode, n_slabs, n_steps):
+    """Kernel launches of ``n_steps`` slab steps: a slab launches what a
+    step of the global step on the same layout does."""
+    path = ("wide " if layout == "wide" else "") + mode
+    return {k: v * n_slabs * n_steps
+            for k, v in PATHS[path]["per_step"].items()}
+
+
+def slab_state(db, grid, dev, density_mode, slabs=None):
+    """Phase 3's jittered state with N(0, 1) velocities of ``db``; in
+    continuity mode seeded with the summation density (the slab seed with
+    ``slabs``, else the global one)."""
+    x, v = jittered(db, dev)
+    state = db.state._replace(x=x, v=v)
+    if density_mode == "continuity":
+        if slabs:
+            state = slab_init_density(state, grid, db.params, slabs,
+                                      device=dev)
+        else:
+            state = init_density(state, grid, db.params, device=dev)
+    return state
+
+
+def phase_slab_kernels_vs_plain(dev, card):
+    """Phase 9: one slab kernel step against one slab plain step on the
+    100k dam break (4 slabs of 10 core planes, each slab's extended grid
+    with the two empty virtual planes at the domain's ends), in both
+    modes, on the spill layout at K = 32 and K = 24 (the spill tier
+    occupied) and on the single tier at K = 128: every one of the nine
+    kernel roles on the slab path.  Positions rtol 1e-5, atol 1e-6;
+    density rtol 1e-5; velocities at tests/test_bigstep.py's tolerances
+    of the slab step against the global step (:data:`SLAB_TOLERANCES`)."""
+    db = slab_dam_break(SLAB_100K, dev)
+    slabs = SLAB_100K[3]
+    for k in (32, 24, K_WIDE):
+        layout = "wide" if k > 64 else "spill"
+        grid = db.grid._replace(capacity=k)
+        for mode in PATHS_MODES:
+            tag = "phase 9 (slab %s K=%d %s)" % (layout, k, mode)
+            state = slab_state(db, grid, dev, mode, slabs)
+            step_k = make_slab_step_fn(grid, db.params, slabs,
+                                       density_mode=mode, device=dev)
+            step_p = make_slab_step_fn(grid, db.params, slabs,
+                                       density_mode=mode, device=dev,
+                                       use_kernels=False,
+                                       spill=layout == "spill")
+            want = {"use_kernels": True, "spill": layout == "spill",
+                    "density_mode": mode}
+            if step_k.resolved != want:
+                raise AssertionError("%s resolved to %r"
+                                     % (tag, step_k.resolved))
+            sk, (rk, _pk, ok, wk), counts = run_counted(step_k, state, 1)
+            sp, (rp, _pp, op, wp) = step_p(state)
+            if counts != slab_launches(layout, mode, slabs, 1):
+                raise AssertionError("%s: launches %s" % (tag, counts))
+            if int(ok) != int(op) or int(wk) or int(wp):
+                raise AssertionError("%s: cell overflow %d / %d, window %d "
+                                     "/ %d" % (tag, int(ok), int(op),
+                                               int(wk), int(wp)))
+            torch.testing.assert_close(sk.x, sp.x, rtol=1e-5, atol=1e-6)
+            v_rtol, v_atol = SLAB_TOLERANCES[mode][2]
+            torch.testing.assert_close(sk.v, sp.v, rtol=v_rtol, atol=v_atol)
+            torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0.0)
+            n_spill = 0
+            if layout == "spill":
+                cnt = torch.bincount(cell_id(state.x, grid),
+                                     minlength=grid.n_cells)
+                n_spill = int(torch.clamp(cnt - k, min=0).sum())
+            print("%s: N=%d, %d slabs, %d in the spill tier, cell overflow "
+                  "%d; slab kernel step vs slab plain step: positions max "
+                  "abs err %.3g (rtol 1e-5, atol 1e-6), velocities %.3g "
+                  "(rtol %g, atol %g), density %.3g (rtol 1e-5); launches %s"
+                  % (tag, db.n, slabs, n_spill, int(ok),
+                     float((sk.x - sp.x).abs().max()),
+                     float((sk.v - sp.v).abs().max()), v_rtol, v_atol,
+                     float((rk - rp).abs().max()), json.dumps(counts)))
+
+
+#: tests/test_bigstep.py's tolerances of the slab step against the global
+#: step: (rho rtol, atol), (x rtol, atol), (v rtol, atol)
+SLAB_TOLERANCES = {
+    "summation": ((2e-5, 1e-2), (1e-5, 1e-7), (2e-4, 2e-4)),
+    "continuity": ((5e-4, 0.0), (1e-5, 1e-6), (5e-4, 5e-4)),
+}
+
+
+def phase_slab_vs_global(dev, card):
+    """Phase 9: the slab kernel step (12 slabs of 7 core planes) against
+    the port's global kernel step on the 1M dam break from phase 3's
+    jittered state, 3 steps, both modes, spill (K = 32) and single tier
+    (K = 128), at tests/test_bigstep.py's tolerances, window overflow 0,
+    the same cell overflow; whether the two are bit-identical.  Then 20
+    silent slab steps under ``set_sync_debug_mode("error")``, and both
+    steps timed (CUDA events)."""
+    db = slab_dam_break(SLAB_1M, dev)
+    slabs = SLAB_1M[3]
+    for k in (32, K_WIDE):
+        layout = "wide" if k > 64 else "spill"
+        grid = db.grid._replace(capacity=k)
+        for mode in PATHS_MODES:
+            tag = "phase 9 (1M slab vs global, %s K=%d %s)" % (layout, k, mode)
+            state = slab_state(db, grid, dev, mode)
+            step_g = make_step_fn(grid, db.params, density_mode=mode,
+                                  device=dev)
+            step_s = make_slab_step_fn(grid, db.params, slabs,
+                                       density_mode=mode, device=dev)
+            if step_g.resolved != step_s.resolved:
+                raise AssertionError("%s: resolved %r and %r" % (
+                    tag, step_g.resolved, step_s.resolved))
+            sg, ss = state, state
+            for _ in range(3):
+                sg, (rg, _pg, og) = step_g(sg)
+                ss, (rs, _ps, os_, ws) = step_s(ss)
+                if int(ws) or int(os_) != int(og):
+                    raise AssertionError("%s: window overflow %d, cell "
+                                         "overflow %d / %d"
+                                         % (tag, int(ws), int(os_), int(og)))
+            (r_rtol, r_atol), (x_rtol, x_atol), (v_rtol, v_atol) = \
+                SLAB_TOLERANCES[mode]
+            torch.testing.assert_close(rs, rg, rtol=r_rtol, atol=r_atol)
+            torch.testing.assert_close(ss.x, sg.x, rtol=x_rtol, atol=x_atol)
+            torch.testing.assert_close(ss.v, sg.v, rtol=v_rtol, atol=v_atol)
+            same = (torch.equal(ss.x, sg.x) and torch.equal(ss.v, sg.v)
+                    and torch.equal(rs, rg))
+            ms_g = step_ms(step_g, state, 5, 1)
+            ms_s = step_ms(step_s, state, 5, 1)
+            print("%s: N=%d, 3 steps within tests/test_bigstep.py's "
+                  "tolerances (max abs x %.3g, v %.3g, rho %.3g), window "
+                  "overflow 0, cell overflow %d in both: %s; global %.4f "
+                  "ms/step, slab %.4f ms/step (CUDA events over 5 steps) "
+                  "[%s]" % (tag, db.n, float((ss.x - sg.x).abs().max()),
+                            float((ss.v - sg.v).abs().max()),
+                            float((rs - rg).abs().max()), int(og),
+                            "bit-identical" if same else "not bit-identical",
+                            ms_g, ms_s, card))
+    step = make_slab_step_fn(db.grid, db.params, slabs, device=dev)
+    state = slab_state(db, db.grid, dev, "summation")
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(20):
+            state, aux = step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if int(aux[3]) or not bool(torch.isfinite(state.x).all()):
+        raise AssertionError("phase 9: the silent slab steps overflowed or "
+                             "are not finite")
+    print("phase 9 (1M slab, no host sync): 20 silent slab steps (spill "
+          "summation, %d slabs) under sync debug mode \"error\": 0 syncs, "
+          "%.4f ms/step (host clock) [%s]" % (slabs, 1e3 * wall / 20, card))
+    box = [state]
+
+    def run():
+        box[0], _aux = step(box[0])
+
+    profile_run(run, db.n, 10, 2, "phase 9",
+                "1M slab spill summation, %d slabs" % slabs, card)
+
+
+def peak_bytes_per_particle(step, state, n_steps=1):
+    """Peak device bytes a particle over ``n_steps`` steps from ``state``:
+    ``max_memory_allocated`` (the state included) less what was allocated
+    besides the state before, over N."""
+    state_bytes = sum(t.numel() * t.element_size() for t in state
+                      if t is not None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - state_bytes
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n_steps):
+        out, _aux = step(state)[:2]
+        del out, _aux
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / state.x.shape[0]
+
+
+def phase_global_peak(dev, card):
+    """Phase 9: the global spill step's peak device bytes a particle at
+    1M in both modes (and the slab step's beside it), and the N at which
+    the global step would fill the card; the global step is not run at
+    1e8.  Returns the projections by mode."""
+    db = slab_dam_break(SLAB_1M, dev)
+    total = torch.cuda.get_device_properties(0).total_memory
+    projected = {}
+    for mode in PATHS_MODES:
+        state = slab_state(db, db.grid, dev, mode)
+        step_g = make_step_fn(db.grid, db.params, density_mode=mode,
+                              device=dev)
+        step_s = make_slab_step_fn(db.grid, db.params, SLAB_1M[3],
+                                   density_mode=mode, device=dev)
+        step_g(state)  # warm-up: the kernels' constants, the caches
+        g = peak_bytes_per_particle(step_g, state)
+        s = peak_bytes_per_particle(step_s, state)
+        projected[mode] = total / g
+        print("phase 9 (peak memory, 1M spill %s): global step %.1f B a "
+              "particle, slab step (%d slabs) %.1f B a particle "
+              "(max_memory_allocated, the state included); the global "
+              "step would fill the card's %.4g B at N = %.4g [%s]"
+              % (mode, g, SLAB_1M[3], s, total, projected[mode], card))
+        del state, step_g, step_s
+    return projected
+
+
+def hold_slab_roles(state, grid, params, n_slabs, card):
+    """The three two-tier pair passes of the spill slab step (density,
+    acceleration, acceleration + drho/dt) against their plain versions on
+    three slabs' extended grids of ``state``, laid out by the slab step's
+    own global pass (``bigstep.slab_tiers``), at phase 3's tolerances:
+    the first slab (the domain's end, with its two empty virtual planes),
+    the last slab that holds particles (the water column's front; the
+    slabs past it are empty) and the one midway.  The densities and
+    pressures the acceleration passes take are the plain density pass's,
+    finished as the step finishes them.  The launches here are not
+    counted as the main path's."""
+    nxl = grid.dims[0] // n_slabs
+    per_slab = torch.bincount(
+        cell_id(state.x, grid) // (nxl * grid.dims[1] * grid.dims[2]),
+        minlength=n_slabs)
+    full = torch.nonzero(per_slab).flatten().tolist()
+    chosen = sorted({full[0], full[len(full) // 2], full[-1]})
+    print("phase 9 (1e8 slabs): %d of %d slabs hold particles; held: %s"
+          % (len(full), n_slabs, chosen))
+    for s, ext, tiers in slab_tiers(state, grid, n_slabs, chosen):
+        (sa, ma), (sb, mb) = tiers
+        tag = "phase 9 (1e8 slab %d of %d, %s cells, K=%d)" % (
+            s, n_slabs, "x".join(map(str, ext.dims)), grid.capacity)
+        errs = []
+        t0 = time.perf_counter()
+        got = ops.density_spill(sa[:3], ma, sb[:3], mb, ext, params)
+        want = ops.density_spill_plain(sa[:3], ma, sb[:3], mb, ext, params)
+        for t, live in enumerate((ma, mb)):
+            if bool(live.any()):
+                errs.append("density_spill tier %d %.6g" % (t, check_scaled(
+                    "%s density_spill tier %d" % (tag, t), got[t], want[t],
+                    live, 1e-5, 1e-6)))
+        ra, pa = finish_density(want[0], ma, params)
+        rb, pb = finish_density(want[1], mb, params)
+        a = (sa[:3], sa[3:6], ra, pa, ma)
+        b = (sb[:3], sb[3:6], rb, pb, mb)
+        got = ops.accel_spill(*a, *b, ext, params)
+        want = ops.accel_spill_plain(*a, *b, ext, params)
+        for t, live in enumerate((ma, mb)):
+            if bool(live.any()):
+                errs.append("accel_spill tier %d %.6g" % (t, check_scaled(
+                    "%s accel_spill tier %d" % (tag, t), got[t], want[t],
+                    live, 1e-4, 1e-5)))
+        got = ops.accel_drho_spill(*a, *b, ext, params, delta_sph=DELTA_SPH)
+        want = ops.accel_drho_spill_plain(*a, *b, ext, params,
+                                          delta_sph=DELTA_SPH)
+        e_acc, e_drho, drho_max = check_drho_tiers(
+            "%s accel_drho_spill" % tag, got, want, (ma, mb))
+        torch.cuda.synchronize()
+        print("%s: %d live slots in tier A, %d in tier B; kernel vs plain "
+              "max abs err: %s, accel_drho_spill acc %.6g, drho %.6g "
+              "(max|drho| %.6g); %.3f s [%s]"
+              % (tag, int(ma.sum()), int(mb.sum()), ", ".join(errs), e_acc,
+                 e_drho, drho_max, time.perf_counter() - t0, card))
+        del sa, ma, sb, mb, a, b, got, want, ra, pa, rb, pb, tiers
+
+
+def phase_cycle_1e8(dev, card):
+    """Phase 9: the reference's 1e8-particle cycle
+    (``benchmarks/benchmark_bigcycle.py --n-side 400 --slabs 32
+    --spill``): the on-device dam break of 100,000,000 particles on 32
+    slabs at K = 32; summation, 1 warm-up and 3 timed silent steps; a
+    3-step cycle emitting one frame (position and velocity) through
+    ``SlabDumpChannel`` into ``tempfile.gettempdir()``, closed, resumed,
+    one more step, ``pypgsd.verify(deep=True)``, the frame bit-equal to
+    the emitting step's output; continuity seeded by
+    ``slab_init_density``, 1 warm-up and 3 timed steps.  Between the
+    summation steps and the frame, the pair kernels are held against
+    their plain versions on three slabs of the stepped state
+    (:func:`hold_slab_roles`).  Returns the launch counts of the 4 silent
+    steps of each mode."""
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    db = slab_dam_break(SLAB_1E8, dev, on_device=True)
+    n, slabs, grid, params = db.n, SLAB_1E8[3], db.grid, db.params
+    print("phase 9 (1e8 cycle): dam_break(n_side=%d, capacity=\"auto\", "
+          "capacity_headroom=1.15, on_device=True): N=%d, grid %s = %d "
+          "cells, K=%d, %d slabs of %d core planes (%d cells with the halo)"
+          % (SLAB_1E8[0], n, "x".join(map(str, grid.dims)), grid.n_cells,
+             grid.capacity, slabs, grid.dims[0] // slabs,
+             (grid.dims[0] // slabs + 4) * grid.dims[1] * grid.dims[2]))
+    counts = {}
+
+    def timed_mode(mode, state):
+        """1 warm-up and 3 timed silent steps (CUDA events) with the
+        launch counts and the peak memory of all 4: the step, its
+        ms/step and its last state."""
+        step = make_slab_step_fn(grid, params, slabs, density_mode=mode,
+                                 device=dev)
+        if step.resolved != {"use_kernels": True, "spill": True,
+                             "density_mode": mode}:
+            raise AssertionError("1e8 %s resolved to %r" % (mode,
+                                                            step.resolved))
+        box, overflow = [state], []
+
+        def run():
+            box[0], aux = step(box[0])
+            overflow.append(aux[2] + aux[3])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms = cuda_ms(run, 3, warmup=1)
+        if int(torch.stack(overflow).sum()):
+            raise AssertionError("1e8 %s: cell or window overflow" % mode)
+        got = {k: v for k, v in ops.launch_counts.items() if v}
+        if got != slab_launches("spill", mode, slabs, 4):
+            raise AssertionError("1e8 %s: launches %s" % (mode, got))
+        counts.update(got)
+        peak = (torch.cuda.max_memory_allocated() - base) / n
+        print("phase 9 (1e8 %s): %.4f ms/step (CUDA events over 3 silent "
+              "steps after 1), %.4g particle-steps/s, peak %.1f B a "
+              "particle (%.4g GB, max_memory_allocated, the state "
+              "included); launches of the 4 steps %s [%s]"
+              % (mode, ms, n / (ms / 1e3), peak, peak * n / 1e9,
+                 json.dumps(got), card))
+        if not bool(torch.isfinite(box[0].x).all()):
+            raise AssertionError("1e8 %s: positions not finite" % mode)
+        return step, box[0], ms
+
+    step, state, silent_ms = timed_mode("summation", db.state)
+    del db
+    box = [state]
+
+    def run():
+        box[0], _aux = step(box[0])
+
+    profile_run(run, n, 2, 0, "phase 9",
+                "1e8 slab spill summation, %d slabs" % slabs, card)
+    state = box[0]
+    del box
+    hold_slab_roles(state, grid, params, slabs, card)
+    torch.cuda.empty_cache()
+
+    tmpdir = tempfile.gettempdir()
+    free = shutil.disk_usage(tmpdir).free
+    frame_bytes = 2 * 3 * 4 * n
+    print("phase 9 (1e8 frame): %.4g GB free in %s for one %.4g GB frame "
+          "(position + velocity)" % (free / 1e9, tmpdir, frame_bytes / 1e9))
+    if free < 1.5 * frame_bytes:
+        raise AssertionError("not enough disk in %s for the frame" % tmpdir)
+    path = os.path.join(tmpdir, "tpgsd_torch_chip_smoke_1e8.gsd")
+    try:
+        chan = SlabDumpChannel(
+            ShardedFrameWriter(path, application="tpgsd_torch.chip_smoke",
+                               comm=SingleComm()),
+            n=n, n_slabs=slabs, keys=("position", "velocity"))
+        step_e = make_slab_step_fn(grid, params, slabs,
+                                   slab_emit=chan.slab_emit, device=dev)
+        walls, emitted = [], None
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _aux = step_e(state, chan.dump(i) if i == 1
+                                 else chan.no_dump())
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            if i == 1:
+                emitted = state
+                t0 = time.perf_counter()
+                chan.flush()
+                flush_ms = 1e3 * (time.perf_counter() - t0)
+        chan.close()
+        stats = chan.stats
+        print("phase 9 (1e8 frame): a 3-step cycle, step 1 emitting: %.3f / "
+              "%.3f / %.3f ms a step (host clock, device synchronised; the "
+              "silent steps' CUDA-event mean above %.4f), the emission's "
+              "host scatter done %.3f ms after its step (flush), %.3f s of "
+              "scatters and %.3f s of frame hand-off to the writer on the "
+              "emission thread; %.4g GB copied device-to-host "
+              "(%d whole windows of %d rows), writer %.1f MB/s while "
+              "writing, %.1f MB/s effective, overlap %.3f [%s]"
+              % (walls[0], walls[1], walls[2], silent_ms, flush_ms,
+                 chan.emit_host_seconds, chan.handoff_seconds,
+                 chan.d2h_bytes / 1e9, slabs,
+                 -(-3 * n // slabs), stats.write_mb_s, stats.effective_mb_s,
+                 stats.overlap_efficiency, card))
+        del state
+        t0 = time.perf_counter()
+        resumed, step_no, writer, _ = resume(path, comm=SingleComm(),
+                                             device=dev)
+        writer.close()
+        resume_s = time.perf_counter() - t0
+        if step_no != 1 or not (torch.equal(resumed.x, emitted.x)
+                                and torch.equal(resumed.v, emitted.v)):
+            raise AssertionError("1e8: the frame (step %d) differs from the "
+                                 "emitting step's output" % step_no)
+        del emitted
+        after, aux = step(resumed)
+        torch.cuda.synchronize()
+        if int(aux[3]) or not bool(torch.isfinite(after.x).all()):
+            raise AssertionError("1e8: the step after the resume failed")
+        del resumed, after, aux
+        t0 = time.perf_counter()
+        report = tpgsd_torch.pypgsd.verify(path, deep=True)
+        fsck_s = time.perf_counter() - t0
+        if not report["ok"] or report["frames"] != 1:
+            raise AssertionError("1e8: fsck %s" % (report,))
+        print("phase 9 (1e8 frame): resume in %.3f s, position and velocity "
+              "bit-equal to the emitting step's output, one more step "
+              "taken; pypgsd.verify(deep=True) ok in %.3f s (%d chunks, "
+              "%d data bytes, file %d bytes) [%s]"
+              % (resume_s, fsck_s, report["chunks"], report["data_bytes"],
+                 report["file_size"], card))
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+
+    torch.cuda.empty_cache()
+    db = slab_dam_break(SLAB_1E8, dev, on_device=True)
+    t0 = time.perf_counter()
+    seeded = slab_init_density(db.state, grid, params, slabs, device=dev)
+    torch.cuda.synchronize()
+    print("phase 9 (1e8 continuity): slab_init_density %.3f s (host clock, "
+          "one summation slab step) [%s]" % (time.perf_counter() - t0, card))
+    del db
+    timed_mode("continuity", seeded)
+    print("phase 9 (1e8 cycle) ran %.1f s" % (time.perf_counter() - t_start))
+    return counts
+
+
 def check_no_reference_modules():
     """The run must not have loaded JAX or the JAX package."""
     loaded = sorted(
@@ -2073,6 +2556,12 @@ def main():
         phase_rollout(dev, card, params, mode)
     phase_lattice(dev, card)
     print("phase 8 ran %.1f s" % (time.perf_counter() - t8))
+    t9 = time.perf_counter()
+    phase_slab_kernels_vs_plain(dev, card)
+    phase_slab_vs_global(dev, card)
+    phase_global_peak(dev, card)
+    slab_counts = phase_cycle_1e8(dev, card)
+    print("phase 9 ran %.1f s [%s]" % (time.perf_counter() - t9, card))
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"
@@ -2085,6 +2574,8 @@ def main():
             "source": SOURCE,
             "replaces": replaces,
             "launches": counts[path][key],
+            # the same role's launches in the 1e8 cycle's silent steps
+            "slab_launches": slab_counts.get(key, 0),
             "max_abs_err": errs[key]["abs"],
             "max_scaled_err": errs[key]["scaled"],
             "ms": times[key]["ms"],

@@ -4,6 +4,8 @@ version (the tile kernels ``density_pairs_kernel`` and
 and, for momentum, past them up to K = 1024 with ranges staged in pieces,
 the wide single-tier roles at K = 96, 128 and 256 with prefix and
 arbitrary masks, the ghost-halo route against the wrapped-table route),
+the slab step (kernel against plain, silent steps without a host sync,
+a frame streamed through the side stream and the ring),
 the launch counts,
 the operand checks, and the failed-build rule.  Every test here needs an NVIDIA GPU and skips without one; the
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -1108,3 +1110,119 @@ def test_on_device_lattice_and_resume_on_the_card(cuda, tmp_path):
     writer.close()
     assert step == 4 and state.x.is_cuda
     assert torch.equal(state.x, card.state.x)
+
+
+def _slab_state(dev, capacity, density_mode, seed=3):
+    """The jittered dam break (``n_side=10``, 9x4x4 cells, 3 slabs) with
+    N(0, 1) velocities at ``capacity`` on ``dev`` (continuity: its
+    summation density seeded by a slab step)."""
+    from tpgsd_torch.sph import slab_init_density
+
+    db = dam_break(n_side=10, capacity=capacity, device="cpu")
+    rng = numpy.random.default_rng(seed)
+    x = db.state.x.numpy()
+    x = x + (0.05 * db.params.h / 1.3) * rng.standard_normal(x.shape)
+    v = rng.standard_normal(x.shape)
+    state = SPHState(x=torch.from_numpy(x.astype(numpy.float32)).to(dev),
+                     v=torch.from_numpy(v.astype(numpy.float32)).to(dev))
+    if density_mode == "continuity":
+        state = slab_init_density(state, db.grid, db.params, 3, device=dev)
+    return db, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+@pytest.mark.parametrize("capacity", [24, 128], ids=["spill", "wide"])
+def test_slab_kernel_step_matches_slab_plain_step(cuda, capacity,
+                                                  density_mode):
+    """The slab step through the kernels against the slab step through the
+    plain passes on the card, on every slab's extended grid (its empty
+    virtual planes at the domain's ends included): positions rtol 1e-5,
+    atol 1e-6, density rtol 1e-5; the kernel launches are counted per
+    slab."""
+    from tpgsd_torch.sph import make_slab_step_fn
+
+    db, state = _slab_state(cuda, capacity, density_mode)
+    spill = capacity == 24
+    kw = {"density_mode": density_mode, "device": cuda}
+    step_k = make_slab_step_fn(db.grid, db.params, 3, **kw)
+    step_p = make_slab_step_fn(db.grid, db.params, 3, use_kernels=False,
+                               spill=spill, **kw)
+    assert step_k.resolved == {"use_kernels": True, "spill": spill,
+                               "density_mode": density_mode}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sk, (rk, _pk, ok, wk) = step_k(state)
+    torch.cuda.synchronize()
+    families = (("accel_drho",) if density_mode == "continuity"
+                else ("density", "accel"))
+    roles = ("self", "cross") if spill else ("wide",)
+    want = {"%s_%s" % (f, r): 3 * (2 if spill else 1)
+            for f in families for r in roles}
+    assert _launched() == want
+    sp, (rp, _pp, op, wp) = step_p(state)
+    assert int(ok) == int(op) and int(wk) == int(wp) == 0
+    torch.testing.assert_close(sk.x, sp.x, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+def test_silent_slab_steps_never_sync(cuda, density_mode):
+    """Silent slab steps make no host sync: the slab offsets are host
+    integers and every per-slab scalar stays on the card."""
+    from tpgsd_torch.sph import make_slab_step_fn
+
+    db, state = _slab_state(cuda, 24, density_mode)
+    step = make_slab_step_fn(db.grid, db.params, 3, device=cuda,
+                             density_mode=density_mode)
+    state, _ = step(state)  # the kernels are built and loaded here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            state, aux = step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(aux[3]) == 0 and bool(torch.isfinite(state.x).all())
+
+
+@pytest.mark.cuda
+def test_emitted_frame_equals_the_post_step_state_on_the_card(cuda, tmp_path):
+    """Windows copied on the side stream into a ring smaller than the slab
+    count (``RING`` = 2 buffers for 3 slabs, so buffers are reused)
+    reassemble the post-step state bit for bit; the silent steps between
+    stay in lockstep."""
+    import tpgsd_torch.pypgsd
+    from tpgsd_torch.io_runtime import SlabDumpChannel
+    from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
+    from tpgsd_torch.sph import make_slab_step_fn
+
+    db, state = _slab_state(cuda, 24, "continuity")
+    path = str(tmp_path / "slab.gsd")
+    keys = ("position", "velocity", "density", "pressure")
+    chan = SlabDumpChannel(ShardedFrameWriter(path, comm=SingleComm()),
+                           n=db.n, n_slabs=3, keys=keys)
+    kw = {"density_mode": "continuity", "device": cuda}
+    step = make_slab_step_fn(db.grid, db.params, 3, slab_emit=chan.slab_emit,
+                             **kw)
+    plain = make_slab_step_fn(db.grid, db.params, 3, **kw)
+    s, ref, want = state, state, []
+    for i in range(4):
+        s, _ = step(s, chan.dump(i) if i % 2 else chan.no_dump())
+        ref, (rho, p, _o, w) = plain(ref)
+        assert int(w) == 0
+        if i % 2:
+            want.append((ref, rho, p))
+    chan.close()
+    assert torch.equal(s.x, ref.x) and torch.equal(s.v, ref.v)
+    assert chan.d2h_bytes == 2 * 3 * (db.n * (8 * 4 + 4) + 16)
+    with open(path, "rb") as fh:
+        assert tpgsd_torch.pypgsd.verify(fh, deep=True)["ok"]
+    with tpgsd_torch.pypgsd.PGSDFile(open(path, "rb")) as f:
+        assert f.nframes == 2
+        for frame, (st, rho, p) in enumerate(want):
+            for name, t in (("position", st.x), ("velocity", st.v),
+                            ("density", rho), ("pressure", p)):
+                assert numpy.array_equal(
+                    f.read_chunk(frame, "particles/" + name), t.cpu().numpy())

@@ -41,6 +41,38 @@ def test_runner_snapshots_its_input(tmp_path):
     numpy.testing.assert_array_equal(frames[2], numpy.full((10, 3), 2.0))
 
 
+class _RecordingWriter:
+    """Keeps the arrays it is asked to write."""
+
+    def __init__(self):
+        self.frames = []
+
+    def write_frame(self, chunks, step=None):
+        self.frames.append(chunks)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def test_runner_takes_owned_host_tensors_without_a_copy():
+    """``submit(owned=True)`` queues a host tensor itself (the slab
+    channel hands over each completed frame so), and the default still
+    snapshots it."""
+    x = torch.arange(30, dtype=torch.float32).reshape(10, 3)
+    rec = _RecordingWriter()
+    with AsyncDumpRunner(rec) as dump:
+        dump.submit({"particles/position": x}, step=0, owned=True)
+        dump.submit({"particles/position": x}, step=1)
+        dump.flush()
+    owned, copied = (f["particles/position"] for f in rec.frames)
+    assert numpy.shares_memory(owned, x.numpy())
+    assert not numpy.shares_memory(copied, x.numpy())
+    numpy.testing.assert_array_equal(copied, x.numpy())
+
+
 def test_dump_stats_are_populated(tmp_path):
     x = torch.ones((1000, 3))
     with AsyncDumpRunner(_writer(tmp_path / "stats.gsd")) as dump:
@@ -120,6 +152,23 @@ _STANDALONE = textwrap.dedent(
             last = traj[-1].particles
             assert numpy.array_equal(last.density, state.rho.numpy())
             assert numpy.array_equal(last.position, state.x.numpy())
+    import tpgsd_torch.pypgsd
+    from tpgsd_torch.io_runtime import SlabDumpChannel
+    from tpgsd_torch.sph import dam_break, make_slab_step_fn
+    db = dam_break(n_side=9, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slab.gsd")
+        chan = SlabDumpChannel(
+            ShardedFrameWriter(path, application="t", comm=SingleComm()),
+            n=db.n, n_slabs=2, keys=("position",))
+        slab = make_slab_step_fn(db.grid, db.params, 2,
+                                 slab_emit=chan.slab_emit, device="cpu")
+        moved, _aux = slab(db.state, chan.dump(0))
+        chan.close()
+        assert tpgsd_torch.pypgsd.verify(path, deep=True)["ok"]
+        with tpgsd_torch.pypgsd.PGSDFile(open(path, "rb")) as f:
+            got = f.read_chunk(0, "particles/position")
+        assert numpy.array_equal(got, moved.x.numpy())
     from tpgsd_torch.sph import make_step_fn, taylor_green
     vortex = taylor_green(n_side=12, device="cpu")
     spin = make_step_fn(vortex.grid, vortex.params, periodic=True, device="cpu")
@@ -133,8 +182,10 @@ _STANDALONE = textwrap.dedent(
 
 
 def test_port_runs_without_jax():
-    """The continuity entry with its dump and read-back, in a process
-    where neither ``jax`` nor ``tpgsd`` can be imported."""
+    """The continuity entry with its dump and read-back, the slab step
+    streaming a frame through ``SlabDumpChannel`` with its fsck, and a
+    periodic step, in a process where neither ``jax`` nor ``tpgsd`` can
+    be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", _STANDALONE], cwd=str(REPO), env=env,

@@ -57,9 +57,13 @@ class DumpStats:
         return self.write_seconds / self.wall_seconds if self.wall_seconds else 0.0
 
 
-def _snapshot(value):
+def _snapshot(value, owned=False):
     """``(host array or tensor, event or None)``: a copy of ``value``
-    that later writes to ``value`` cannot reach."""
+    that later writes to ``value`` cannot reach, or with ``owned`` a
+    host ``value`` itself."""
+    if owned and not (isinstance(value, torch.Tensor)
+                      and value.device.type == "cuda"):
+        return value, None
     if not isinstance(value, torch.Tensor):
         return np.array(value), None
     if value.device.type == "cuda":
@@ -141,7 +145,7 @@ class AsyncDumpRunner:
             self._closed = True
             raise RuntimeError("async dump writer failed") from err
 
-    def submit(self, chunks, step=None):
+    def submit(self, chunks, step=None, owned=False):
         """Snapshot one frame and enqueue it for writing; blocks only
         when ``depth`` frames are already in flight.
 
@@ -149,13 +153,17 @@ class AsyncDumpRunner:
             chunks: dict chunk name -> torch tensor (CUDA or CPU) or
                 array.
             step: optional ``configuration/step`` value.
+            owned: the caller hands the host tensors and arrays over and
+                never writes them again, so they are queued without a
+                copy (CUDA tensors are still copied to the host).
         """
         if self._closed:
             raise ValueError("runner is closed")
         self._check_error()
         if not self.stats._t_first:
             self.stats._t_first = time.perf_counter()
-        snaps = {name: _snapshot(value) for name, value in chunks.items()}
+        snaps = {name: _snapshot(value, owned)
+                 for name, value in chunks.items()}
         self._queue.put((snaps, step))
         self._check_error()
 

@@ -13,6 +13,12 @@ controller, ``dt`` a 0-d device tensor) rolled out by
 ``scan_simulate_adaptive``), :func:`resume` from the last frame of a
 trajectory, and ``dam_break(on_device=True)``, the lattice built on the
 card.
+
+The slab-sequential step (:func:`make_slab_step_fn`, seeded in
+continuity mode by :func:`slab_init_density`) lays out one x-slab at a
+time, for particle counts whose global layout would not fit the card;
+its frames stream per slab through
+:class:`tpgsd_torch.io_runtime.SlabDumpChannel`.
 """
 
 from .cells import (
@@ -26,6 +32,7 @@ from .cells import (
     scatter_to_cells,
     scatter_to_cells_soa,
 )
+from .bigstep import make_slab_step_fn, slab_init_density
 from .checkpoint import resume
 from .dam_break import DamBreak, dam_break
 from .kernels import CubicSpline, WendlandC2
@@ -69,12 +76,14 @@ __all__ = [
     "init_density",
     "make_adaptive_step_fn",
     "make_grid",
+    "make_slab_step_fn",
     "make_step_fn",
     "neighbor_table",
     "resume",
     "run_adaptive",
     "scatter_to_cells",
     "scatter_to_cells_soa",
+    "slab_init_density",
     "still_box",
     "still_box_2d",
     "tait_pressure",

@@ -148,9 +148,27 @@ class SpillCells(NamedTuple):
     mask: torch.Tensor
 
 
+def sorted_runs(cid, n_query):
+    """Stable sort by cell id and the runs of the sorted order, with no
+    map of the dense layout: ``(order, cid_s, slot, starts)``, each
+    int64.  ``slot`` is each sorted particle's (unclamped) slot within
+    its cell (from a ``cummax`` of the run starts, as in the reference)
+    and ``starts`` each cell's first sorted position (``[n_query]``)."""
+    n = cid.shape[0]
+    dev = cid.device
+    cid_s, order = torch.sort(cid, stable=True)
+    starts = torch.searchsorted(
+        cid_s, torch.arange(n_query, dtype=cid_s.dtype, device=dev)
+    )
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    boundary = torch.ones(n, dtype=torch.bool, device=dev)
+    boundary[1:] = cid_s[1:] != cid_s[:-1]
+    run_start = torch.cummax(torch.where(boundary, iota, 0), dim=0).values
+    return order, cid_s, iota - run_start, starts
+
+
 def _sorted_slot_map(cid, n_query, capacity):
-    """Stable sort by cell id, each cell's first sorted position, and the
-    sorted-order gather map.
+    """:func:`sorted_runs` and the sorted-order gather map.
 
     Returns ``(order, cid_s, valid, gidx, slot, starts)`` as in the
     reference: ``gidx[q, k]`` is the sorted position filling slot
@@ -158,20 +176,11 @@ def _sorted_slot_map(cid, n_query, capacity):
     (unclamped) slot within its cell.
     """
     n = cid.shape[0]
-    dev = cid.device
-    cid_s, order = torch.sort(cid, stable=True)
-    starts = torch.searchsorted(
-        cid_s, torch.arange(n_query, dtype=cid_s.dtype, device=dev)
-    )
+    order, cid_s, slot, starts = sorted_runs(cid, n_query)
     counts = torch.diff(starts, append=starts.new_full((1,), n))
-    kslots = torch.arange(capacity, dtype=torch.int64, device=dev)
+    kslots = torch.arange(capacity, dtype=torch.int64, device=cid.device)
     valid = kslots[None, :] < torch.clamp(counts, max=capacity)[:, None]
     gidx = torch.where(valid, starts[:, None] + kslots[None, :], n)
-    iota = torch.arange(n, dtype=torch.int64, device=dev)
-    boundary = torch.ones(n, dtype=torch.bool, device=dev)
-    boundary[1:] = cid_s[1:] != cid_s[:-1]
-    run_start = torch.cummax(torch.where(boundary, iota, 0), dim=0).values
-    slot = iota - run_start
     return order, cid_s, valid, gidx, slot, starts
 
 

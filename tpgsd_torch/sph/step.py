@@ -93,6 +93,50 @@ def _renormalize_density(rho, params):
     return torch.clamp(rho, min=params.rho0)
 
 
+def _floor_density(rho, mask, params, density_renorm=False):
+    """Floor the summed or carried density of live slots at ``0.1 rho0``,
+    renormalize, and fill dead slots (``rho0``, ``p = 0``: keeps
+    ``p/rho^2`` finite in the acceleration pass, and gives the pair
+    passes the same densities whether or not they floor the neighbour's
+    themselves) -> ``(rho, p)``."""
+    rho = torch.where(mask, torch.clamp(rho, min=0.1 * params.rho0),
+                      params.rho0)
+    if density_renorm:
+        rho = _renormalize_density(rho, params)
+    return rho, torch.where(mask, tait_pressure(rho, params), 0.0)
+
+
+def _carried_density(rho_cur, drho, dt, params):
+    """Continuity's density update ``rho_cur + dt drho``, floored at
+    ``0.1 rho0``, and its pressure -> ``(rho, p)``."""
+    rho = torch.clamp(rho_cur + dt * drho, min=0.1 * params.rho0)
+    return rho, tait_pressure(rho, params)
+
+
+def _integrate(x, v, acc, dt, params, lo, hi, drift_dv=None,
+               wrapped_axes=None):
+    """Symplectic Euler (kick then drift, ``drift_dv`` added to the drift
+    velocity only) and reflective walls with damping (reflect, then
+    clip), except the modular wrap on ``wrapped_axes`` -> ``(x, v)``.
+    The one copy of this arithmetic, so the global and slab steps agree
+    bit for bit."""
+    v_new = (v + dt * acc) * params.velocity_damping
+    x_new = x + dt * (v_new if drift_dv is None else v_new + drift_dv)
+    under = x_new < lo
+    over = x_new > hi
+    reflected = torch.where(under, 2.0 * lo - x_new, x_new)
+    reflected = torch.where(over, 2.0 * hi - reflected, reflected)
+    reflected = torch.clamp(reflected, lo, hi)
+    bounce = under | over
+    if wrapped_axes is not None:
+        wrapped = lo + torch.remainder(x_new - lo, hi - lo)
+        x_new = torch.where(wrapped_axes, wrapped, reflected)
+        bounce = bounce & ~wrapped_axes
+    else:
+        x_new = reflected
+    return x_new, torch.where(bounce, -params.wall_damping * v_new, v_new)
+
+
 #: values per ``[B, K, 27K]`` pair plane of the plain pair passes; bounds
 #: their peak memory at about 16 such planes (0.5 GB)
 _PAIR_PLANE = 1 << 23
@@ -572,8 +616,7 @@ def energy_rate(state, grid, params, kernel=WendlandC2, periodic=False,
         mimage = minimum_image(grid, dev, bool(periodic))
         rho = _density_blocks(xv[:3], m, xv[:3], m, nbr, params, kernel,
                               mimage)
-    rho = torch.where(m, torch.clamp(rho, min=0.1 * params.rho0), params.rho0)
-    p = torch.where(m, tait_pressure(rho, params), 0.0)
+    rho, p = _floor_density(rho, m, params)
     if use_kernels:
         du = ops.energy(xv[:3], xv[3:], rho, p, m, grid, params,
                         kernel=kernel, wrap_axes=wrap)
@@ -721,36 +764,17 @@ def make_step_fn(
         if continuity:
             # dropped particles gather drho = 0 from the sentinel row and
             # keep their carried density
-            rho = torch.clamp(rho_cur + dt * out[:, 3], min=0.1 * params.rho0)
-            p = tait_pressure(rho, params)
+            rho, p = _carried_density(rho_cur, out[:, 3], dt, params)
         else:
             rho = out[:, 3]
             p = out[:, 4]
-
-        # symplectic Euler: kick then drift (XSPH smooths the drift
-        # velocity only; the kick and the bounce keep v_new)
-        v_new = (v + dt * acc) * params.velocity_damping
+        drift_dv = None
         if xsph > 0:
-            xsph_cols = out[:, 4:7] if continuity else out[:, 5:8]
-            x_new = x + dt * (v_new + xsph * xsph_cols)
-        else:
-            x_new = x + dt * v_new
-
-        # reflective walls with damping (reflect, then clip), except the
-        # modular wrap on periodic axes
-        under = x_new < lo
-        over = x_new > hi
-        reflected = torch.where(under, 2.0 * lo - x_new, x_new)
-        reflected = torch.where(over, 2.0 * hi - reflected, reflected)
-        reflected = torch.clamp(reflected, lo, hi)
-        bounce = under | over
-        if periodic:
-            wrapped = lo + torch.remainder(x_new - lo, hi - lo)
-            x_new = torch.where(wrapped_axes, wrapped, reflected)
-            bounce = bounce & ~wrapped_axes
-        else:
-            x_new = reflected
-        v_new = torch.where(bounce, -params.wall_damping * v_new, v_new)
+            # XSPH smooths the drift velocity only; the kick and the
+            # bounce keep v_new
+            drift_dv = xsph * (out[:, 4:7] if continuity else out[:, 5:8])
+        x_new, v_new = _integrate(x, v, acc, dt, params, lo, hi, drift_dv,
+                                  wrapped_axes if periodic else None)
 
         if n_fixed > 0:
             # boundary particles never move; in continuity mode their
@@ -766,17 +790,9 @@ def make_step_fn(
         return state, (rho, p, overflow)
 
     def finish_rho(rho, mask):
-        """Floor the summed or carried density, renormalize and fill dead
-        slots (rho0, p = 0: keeps p/rho^2 finite in the acceleration
-        pass, and gives the pair passes the same densities whether or not
-        they floor the neighbour's themselves)."""
-        m = mask[:c]
-        rho = torch.where(m, torch.clamp(rho, min=0.1 * params.rho0),
-                          params.rho0)
-        if density_renorm:
-            rho = _renormalize_density(rho, params)
-        p = torch.where(m, tait_pressure(rho, params), 0.0)
-        return rho, p
+        """:func:`_floor_density` of the summed or carried density on the
+        real cells of ``mask``."""
+        return _floor_density(rho, mask[:c], params, density_renorm)
 
     def gather_bundle(bundle, cells):
         """One particle-order gather of the per-slot ``[C, kc, F]`` bundle
