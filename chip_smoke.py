@@ -58,13 +58,29 @@ the stepped 1e8 state (the first, the water column's front, and one
 midway), a 3-step cycle streaming one
 position + velocity frame through ``SlabDumpChannel``, resumed, stepped
 once more and checked by ``tpgsd_torch.pypgsd.verify(deep=True)``.
+Phase 10 drives the slab domain decomposition
+(``make_distributed_step_fn``) with its shards on the card: the 1M dam
+break on 2 shards (the reference benchmark's slabs of 41 planes), spill
+K = 32 and single tier K = 128, both modes, 3 steps against the global
+kernel step at the reference's decomposition tolerances, the first
+against the plain decomposed step, every particle once, overflow 0, the
+launches of a step (shards x the global step's), both steps timed; a
+4-shard dam break (108,000 particles) with XSPH, surface tension and the
+energy rate, particles crossing every face, each of 5 steps against the
+plain decomposed step; the periodic 1M still box on a ring of 2 shards,
+20 steps in both modes; the adaptive decomposed step bit-identical to
+the fixed one at ``dt == params.dt`` and a 200-step rollout with no host
+sync; ``resume_distributed`` of a 2-frame file onto 1 and 2 shards; with
+one visible GPU the shards share ``cuda:0`` and the script says that
+cross-device copies were not exercised.
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel role (``slab_launches``: its launches in the 4 silent
-steps a mode of the 1e8 cycle); the last line is the run's result:
+steps a mode of the 1e8 cycle; ``decomp_launches``: in one decomposed
+1M step on 2 shards); the last line is the run's result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -90,18 +106,24 @@ from tpgsd_torch.io_runtime import (
     SlabDumpChannel,
     scan_simulate_adaptive,
 )
-from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
+from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm, make_mesh
 from tpgsd_torch.sph import (
     CubicSpline,
     WendlandC2,
+    collect_aux,
+    collect_state,
     dam_break,
+    distribute_state,
     energy_rate,
     init_density,
+    make_adaptive_distributed_step_fn,
     make_adaptive_step_fn,
+    make_distributed_step_fn,
     make_slab_step_fn,
     make_step_fn,
     ops,
     resume,
+    resume_distributed,
     run_adaptive,
     slab_init_density,
     still_box,
@@ -127,6 +149,7 @@ from tpgsd_torch.sph.step import (
 
 N_1M = 86  # n_side of the 1,003,104-particle dam break
 N_1M_PARTICLES = 1003104
+DIMS_1M, K_1M = (82, 41, 41), 32  # its grid and "auto" capacity
 N_100K = 40  # n_side of the 100,000-particle dam break
 K_WIDE = 128  # the single-tier capacity past the two-tier kernels' 64
 N_BOX_1M = 100  # n_side of the 1,000,000-particle periodic still box
@@ -163,7 +186,8 @@ KERNELS = [
     ("accel_drho (wide)", "accel_drho_wide", "tpgsd/sph/pallas_ops.py:391",
      "wide continuity"),
     # the pair passes the reference runs in jnp, not in Pallas: "replaces"
-    # names the jnp pass (the energy pass's cross role is on no path)
+    # names the jnp pass (the energy pass's cross role runs on the
+    # decomposed step's two tiers with compute_energy)
     ("accel_pairs<xsph> (self)", "accel_xsph_self",
      "jnp: tpgsd/sph/step.py:166 _xsph_blocks", "options summation"),
     ("accel_pairs<xsph> (cross)", "accel_xsph_cross",
@@ -191,6 +215,9 @@ KERNELS = [
      "jnp: tpgsd/sph/step.py:289 _st_force_blocks", "wide options summation"),
     ("energy (self)", "energy_self",
      "jnp: tpgsd/sph/step.py:482 _energy_blocks", "energy_rate"),
+    ("energy (cross)", "energy_cross",
+     "jnp: tpgsd/sph/step.py:482 _energy_blocks",
+     "decomposed options summation"),
     ("energy (wide)", "energy_wide",
      "jnp: tpgsd/sph/step.py:482 _energy_blocks", "wide energy_rate"),
 ]
@@ -2489,6 +2516,575 @@ def phase_cycle_1e8(dev, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: the slab domain decomposition (make_distributed_step_fn)
+# --------------------------------------------------------------------------
+
+#: shards of the 1M decomposition: two slabs of 41 planes, the reference
+#: benchmark's fit at two devices (benchmarks/benchmark_sph.py:160-178)
+DECOMP_SHARDS = 2
+#: the 4-shard dam break: the long box of tests/test_distributed.py:26-36,
+#: n_side chosen so that its 92 x cells divide by 4, the fluid along all
+#: of x so that particles cross every slab face
+DECOMP_4 = {"n_side": 15, "box": (4.0, 0.5, 0.5), "fill": (1.0, 1.0, 0.5)}
+DECOMP_4_N, DECOMP_4_DIMS = 108000, (92, 11, 11)
+DECOMP_4_V = 10.0  # the scale of its N(0, 1) velocities, m/s
+#: the reference's decomposition tolerances against the global step
+#: (tests/test_distributed.py:98-104)
+DECOMP_X, DECOMP_V = dict(rtol=5e-4, atol=5e-5), dict(rtol=5e-3, atol=5e-3)
+#: the 1M options run of the kernels line's option roles
+DECOMP_OPTIONS = dict(OPTIONS, compute_energy=True)
+
+
+def decomp_launches(path, n_shards):
+    """Launches of one decomposed step: each shard launches what a step of
+    the global step of ``path`` does."""
+    return {k: v * n_shards for k, v in PATHS[path]["per_step"].items()}
+
+
+def counted_step(step, state):
+    """One step with the launch counts set to 0 just before: ``(state,
+    aux, counts)``."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state, aux = step(state)
+    torch.cuda.synchronize()
+    return state, aux, {k: v for k, v in ops.launch_counts.items() if v}
+
+
+def dist_overflow(aux):
+    """Total cell and migration overflow of a decomposed step's aux."""
+    return (int(torch.stack([c.cpu() for c in aux.cell_overflow]).sum()),
+            int(torch.stack([c.cpu() for c in aux.migrate_overflow]).sum()))
+
+
+def check_complete(tag, dist, n):
+    """Every particle present once across the shards."""
+    pid = torch.cat([p.to(dist.pid[0].device) for p in dist.pid])
+    alive = torch.sort(pid[pid >= 0]).values
+    if alive.numel() != n or not torch.equal(
+            alive, torch.arange(n, dtype=alive.dtype, device=alive.device)):
+        raise AssertionError("%s: %d live slots, not each of the %d "
+                             "particles once" % (tag, alive.numel(), n))
+
+
+def by_pid(dist, field, n):
+    """A decomposed state's ``field`` as one ``[n, ...]`` tensor in pid
+    order on the first shard's device (absent particles 0)."""
+    dev0 = dist.pid[0].device
+    pid = torch.cat([p.to(dev0) for p in dist.pid]).long()
+    vals = torch.cat([t.to(dev0) for t in getattr(dist, field)])
+    out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
+    out[pid[pid >= 0]] = vals[pid >= 0]
+    return out
+
+
+def check_change(name, got, want, before, rounding, period=None):
+    """The step's change of a field: ``|got - want| <= 1e-5 max|d| + 1e-4
+    |d| + rounding`` on every particle, ``d = want - before`` (the
+    minimum image on the axes of extent ``period``); raises when the
+    plain step left the field unchanged.  Returns the largest
+    ``|got - want| / max|d|``."""
+    d = want - before
+    if period is not None:
+        d = d - period * torch.round(d / period)
+    scale = d.abs().max()
+    if not float(scale) > 0.0:
+        raise AssertionError("%s: the plain step did not change it" % name)
+    err = (got - want).abs()
+    bad = err > 1e-5 * scale + 1e-4 * d.abs() + rounding
+    if bool(bad.any()):
+        raise AssertionError(
+            "%s: the change differs on %d of %d values (max %.3g on a largest "
+            "change of %.3g)" % (name, int(bad.sum()), bad.numel(),
+                                 float(err.max()), float(scale)))
+    return float(err.max() / scale)
+
+
+def hold_decomp_vs_plain(tag, before, got, want, mode, n, du=False,
+                         period=None):
+    """One decomposed kernel step ``got = (state, aux)`` from ``before``
+    (``n`` particles) against the plain decomposed step ``want`` from the
+    same state at phase 5's step tolerances: the same pids in every slot,
+    positions rtol 1e-5 atol 1e-6, velocities rtol 1e-4 atol 1e-5 scaled
+    by max|v|, summation density rtol 1e-5 atol 1e-6 scaled (continuity's
+    rtol 1e-4 atol 1e-2), du/dt rtol 1e-4 atol 1e-5 scaled.  One step
+    moves x by only dt^2 a, so the step's CHANGE of each particle's v, x
+    and carried rho is held too (:func:`check_change`, with the rounding
+    of the field itself: 2^-21 |v| and |x|, four units in the last
+    place, and ``RHO_ROUNDING``): a wrong acceleration, XSPH,
+    surface-tension or drho/dt sum moves it.
+
+    A periodic run (``period``: ``[3]`` box extents) holds the change of
+    x and rho but not of v: in the still box the net acceleration is the
+    small remainder of pressure sums that cancel, and the rounding of
+    those sums is not small against it (the kernels' ghost positions x +
+    L and the plain passes' minimum image already round a separation
+    across a face differently).  Returns the max abs errors and the
+    changes' scaled ones."""
+    (sk, ak), (sp, ap) = got, want
+    for d, (a, b) in enumerate(zip(sk.pid, sp.pid)):
+        if not torch.equal(a, b):
+            raise AssertionError("%s: shard %d holds other pids than the "
+                                 "plain step's" % (tag, d))
+    if dist_overflow(ak) != dist_overflow(ap):
+        raise AssertionError("%s: overflow %s, plain %s"
+                             % (tag, dist_overflow(ak), dist_overflow(ap)))
+    live = torch.cat([p >= 0 for p in sk.pid])
+    xk, xp = torch.cat(sk.x), torch.cat(sp.x)
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+    errs = {"x": float((xk - xp).abs().max())}
+    errs["v"] = check_scaled(tag + " v", torch.cat(sk.v), torch.cat(sp.v),
+                             live, 1e-4, 1e-5)
+    changed = ("x",) if period is not None else ("v", "x")
+    for name in changed + (("rho",) if mode == "continuity" else ()):
+        f0, fk, fp = (by_pid(st, name, n) for st in (before, sk, sp))
+        rounding = (RHO_ROUNDING if name == "rho"
+                    else 2.0 ** -21 * torch.maximum(fp.abs(), f0.abs()))
+        errs["d" + name] = check_change(
+            "%s change of %s" % (tag, name), fk, fp, f0, rounding,
+            period if name == "x" else None)
+    if mode == "continuity":
+        rk, rp = torch.cat(sk.rho), torch.cat(sp.rho)
+        torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-2)
+        errs["rho"] = float((rk - rp).abs().max())
+    else:
+        errs["rho"] = check_scaled(tag + " rho", torch.cat(ak.rho),
+                                   torch.cat(ap.rho), live, 1e-5, 1e-6)
+    if du:
+        errs["du"] = check_scaled(tag + " du/dt", torch.cat(ak.dudt),
+                                  torch.cat(ap.dudt), live, 1e-4, 1e-5)
+    return errs
+
+
+def held(errs):
+    """The printout of :func:`hold_decomp_vs_plain`'s readings."""
+    changes = ", ".join("of %s %.3g" % (k[1:], errs[k])
+                        for k in ("dv", "dx", "drho") if k in errs)
+    return ("max abs x %.3g, v %.3g, rho %.3g%s; the step's change %s of "
+            "its largest" % (errs["x"], errs["v"], errs["rho"],
+                             ", du/dt %.3g" % errs["du"] if "du" in errs
+                             else "", changes))
+
+
+def phase_decomp_vs_global(dev, card, devices, time_steps=True):
+    """Phase 10: the 1M dam break on a mesh of ``devices`` (two shards):
+    spill at the auto K = 32 and single tier at K = 128, both modes, 3
+    decomposed steps from phase 3's jittered state: every particle once,
+    overflow 0, collected x and v against the port's global kernel step
+    at the reference's decomposition tolerances; the first step against
+    the plain decomposed step from the same state at phase 5's tolerances;
+    the launches of one step (shards x the global step's count a role);
+    with ``time_steps`` both steps timed (CUDA events, 20 steps) and the
+    spill summation step profiled as phase 7 profiles the global step.
+    Returns the launches of one step of each path."""
+    db = dam_break(n_side=N_1M, capacity="auto", capacity_headroom=1.15,
+                   device=dev)
+    if (db.n, tuple(db.grid.dims), db.grid.capacity) != (
+            N_1M_PARTICLES, DIMS_1M, K_1M):
+        raise AssertionError("1M dam break: N=%d grid %s K=%d"
+                             % (db.n, db.grid.dims, db.grid.capacity))
+    mesh = make_mesh(devices=devices)
+    where = ", ".join(str(d) for d in mesh.devices)
+    launches, ms = {}, {}
+    for k in (K_1M, K_WIDE):
+        layout = "wide" if k > 64 else "spill"
+        grid = db.grid._replace(capacity=k)
+        for mode in PATHS_MODES:
+            path = ("wide " if layout == "wide" else "") + mode
+            tag = "phase 10 (1M %s K=%d %s on %s)" % (layout, k, mode, where)
+            state = slab_state(db, grid, dev, mode)
+            step_g = make_step_fn(grid, db.params, density_mode=mode,
+                                  device=dev)
+            dist, cap = distribute_state(state, grid, mesh)
+            step_d = make_distributed_step_fn(grid, db.params, mesh,
+                                              capacity=cap, density_mode=mode)
+            step_p = make_distributed_step_fn(
+                grid, db.params, mesh, capacity=cap, density_mode=mode,
+                use_kernels=False, spill=layout == "spill")
+            if step_d.resolved != step_g.resolved:
+                raise AssertionError("%s: resolved %r, global %r" % (
+                    tag, step_d.resolved, step_g.resolved))
+            d1, aux, counts = counted_step(step_d, dist)
+            want = decomp_launches(path, mesh.size)
+            if counts != want:
+                raise AssertionError("%s: launches %s, expected %s"
+                                     % (tag, counts, want))
+            launches["decomposed " + path] = counts
+            t0 = time.perf_counter()
+            errs = hold_decomp_vs_plain(tag, dist, (d1, aux), step_p(dist),
+                                        mode, db.n)
+            plain_s = time.perf_counter() - t0
+            sd, sg = d1, state
+            sg, _aux_g = step_g(sg)
+            for _ in range(2):
+                sd, aux = step_d(sd)
+                sg, _aux_g = step_g(sg)
+            if dist_overflow(aux) != (0, 0):
+                raise AssertionError("%s: overflow %s" % (tag,
+                                                          dist_overflow(aux)))
+            check_complete(tag, sd, db.n)
+            got = collect_state(sd, db.n)
+            np.testing.assert_allclose(got.x, sg.x.cpu().numpy(), **DECOMP_X)
+            np.testing.assert_allclose(got.v, sg.v.cpu().numpy(), **DECOMP_V)
+            ex = float(np.abs(got.x - sg.x.cpu().numpy()).max())
+            ev = float(np.abs(got.v - sg.v.cpu().numpy()).max())
+            msg = ("%s: N=%d, %d slots a shard, 3 steps: every particle once, "
+                   "overflow 0, against the global kernel step max abs x "
+                   "%.3g (rtol 5e-4, atol 5e-5), v %.3g (rtol 5e-3, atol "
+                   "5e-3); step 1 against the plain decomposed step (%.1f "
+                   "s): pids equal, %s; launches a step %s"
+                   % (tag, db.n, cap, ex, ev, plain_s, held(errs),
+                      json.dumps(counts)))
+            if time_steps:
+                ms[path] = (step_ms(step_d, dist, 20, 2),
+                            step_ms(step_g, state, 20, 2))
+                msg += ("; decomposed %.4f ms/step, global %.4f ms/step "
+                        "(CUDA events over 20 steps; %d shards on one "
+                        "device measure the decomposition's overhead, not "
+                        "scaling)" % (ms[path][0], ms[path][1], mesh.size))
+            print(msg + " [%s]" % card)
+            if time_steps and path == "summation":
+                box = [dist]
+
+                def run():
+                    box[0], _aux = step_d(box[0])
+
+                profile_run(run, db.n, 10, 2, "phase 10",
+                            "1M decomposed spill summation, %d shards on "
+                            "one device" % mesh.size, card)
+                del box
+            del state, dist, d1, sd, sg, step_p
+            torch.cuda.empty_cache()
+    return launches, ms
+
+
+def crossings(before, after, n_shards, n):
+    """Particles that crossed each face ``d | d + 1`` (either way)
+    between two decomposed states of ``n`` particles."""
+    owner = []
+    for st in (before, after):
+        pid = np.concatenate([p.cpu().numpy() for p in st.pid])
+        shard = np.repeat(np.arange(n_shards), pid.shape[0] // n_shards)
+        own = np.full(n, -1)
+        own[pid[pid >= 0]] = shard[pid >= 0]
+        owner.append(own)
+    a, b = owner
+    return [int(((a == d) & (b == d + 1)).sum() + ((a == d + 1) & (b == d))
+                .sum()) for d in range(n_shards - 1)]
+
+
+def phase_decomp_options(dev, card):
+    """Phase 10: the 4-shard mesh on one device with ``xsph=0.5,
+    surface_tension=0.05, compute_energy=True``, spill and single tier
+    (K = 128), summation: 5 kernel steps from the jittered state
+    (velocities N(0, 10^2)) with particles crossing every face, each step held against the plain
+    decomposed step from the same state, migrate overflow 0."""
+    db = dam_break(capacity="auto", capacity_headroom=1.15, device=dev,
+                   **DECOMP_4)
+    if (db.n, tuple(db.grid.dims)) != (DECOMP_4_N, DECOMP_4_DIMS):
+        raise AssertionError("4-shard dam break: N=%d grid %s"
+                             % (db.n, db.grid.dims))
+    mesh = make_mesh(devices=[dev] * 4)
+    for k in (min(max(db.grid.capacity, 24), 64), K_WIDE):
+        layout = "wide" if k > 64 else "spill"
+        grid = db.grid._replace(capacity=k)
+        tag = "phase 10 (4 shards, %s K=%d with options)" % (layout, k)
+        state = slab_state(db, grid, dev, "summation")
+        # the lattice planes lie half a spacing from each face: velocities
+        # of N(0, 10^2) carry particles across every face within 5 steps
+        state = state._replace(v=DECOMP_4_V * state.v)
+        dist0, cap = distribute_state(state, grid, mesh)
+        kw = dict(capacity=cap, **DECOMP_OPTIONS)
+        step_k = make_distributed_step_fn(grid, db.params, mesh, **kw)
+        step_p = make_distributed_step_fn(grid, db.params, mesh,
+                                          use_kernels=False,
+                                          spill=layout == "spill", **kw)
+        dist, errs = dist0, {}
+        for _ in range(5):
+            got = step_k(dist)
+            e = hold_decomp_vs_plain(tag, dist, got, step_p(dist),
+                                     "summation", db.n, du=True)
+            errs = {key: max(errs.get(key, 0.0), v) for key, v in e.items()}
+            dist, aux = got
+            if dist_overflow(aux)[1]:
+                raise AssertionError("%s: migrate overflow" % tag)
+        faces = crossings(dist0, dist, mesh.size, db.n)
+        if min(faces) == 0:
+            raise AssertionError("%s: no crossing of a face: %s" % (tag,
+                                                                    faces))
+        check_complete(tag, dist, db.n)
+        print("%s: dam_break(%s), N=%d, grid %s, %d slots a shard, "
+              "velocities N(0, %g^2); 5 steps each held against the plain "
+              "decomposed step: pids equal, %s; migrate overflow 0; "
+              "particles that crossed faces 0|1, 1|2, 2|3: %s [%s]"
+              % (tag, ", ".join("%s=%s" % kv for kv in DECOMP_4.items()),
+                 db.n, "x".join(map(str, grid.dims)), cap, DECOMP_4_V,
+                 held(errs), faces, card))
+
+
+def phase_decomp_periodic(dev, card):
+    """Phase 10: the periodic 1M still box on a ring of 2 shards, spill K
+    = 48, both modes, 20 steps: phase 4's density limits (mean within 2%
+    of rho0, every particle within 1% of the mean), every particle once,
+    the launches of the global periodic step on each shard; one step
+    against the plain decomposed step from the box with seeded N(0, 1)
+    velocities, as the 1M holds' jittered state has (at rest the
+    lattice's accelerations are the rounding of sums that cancel)."""
+    sc = still_box(n_side=N_BOX_1M, device=dev)
+    grid = sc.grid._replace(capacity=48)
+    mesh = make_mesh(devices=[dev] * DECOMP_SHARDS)
+    period = grid.cell_size * torch.tensor(grid.dims, dtype=torch.float32,
+                                           device=dev)
+    for mode in PATHS_MODES:
+        tag = "phase 10 (periodic still box, ring of %d, spill K=48 %s)" % (
+            mesh.size, mode)
+        state = sc.state
+        if mode == "continuity":
+            state = init_density(state, grid, sc.params, periodic=True,
+                                 device=dev)
+        dist, cap = distribute_state(state, grid, mesh)
+        kw = dict(capacity=cap, periodic=True, density_mode=mode)
+        step = make_distributed_step_fn(grid, sc.params, mesh, **kw)
+        step_p = make_distributed_step_fn(grid, sc.params, mesh,
+                                          use_kernels=False, spill=True, **kw)
+        first, aux, counts = counted_step(step, dist)
+        if counts != decomp_launches(mode, mesh.size):
+            raise AssertionError("%s: launches %s" % (tag, counts))
+        rng = np.random.default_rng(5)
+        moving = dist._replace(v=tuple(
+            v + torch.where((p >= 0)[:, None], torch.from_numpy(
+                rng.standard_normal(tuple(v.shape)).astype(np.float32)
+            ).to(dev), 0.0) for v, p in zip(dist.v, dist.pid)))
+        errs = hold_decomp_vs_plain(tag, moving, step(moving),
+                                    step_p(moving), mode, sc.n,
+                                    period=period)
+        dist = first
+        for _ in range(19):
+            dist, aux = step(dist)
+        if dist_overflow(aux) != (0, 0):
+            raise AssertionError("%s: overflow %s" % (tag,
+                                                      dist_overflow(aux)))
+        check_complete(tag, dist, sc.n)
+        rho = torch.tensor(collect_aux(dist, aux, sc.n, sc.params)[0])
+        mean = float(rho.mean())
+        spread = float((rho / mean - 1.0).abs().max())
+        if abs(mean / 1000.0 - 1.0) > 0.02 or spread > 0.01:
+            raise AssertionError("%s: mean density %.4f, largest deviation "
+                                 "%.4f" % (tag, mean, spread))
+        print("%s: N=%d, 20 steps, mean density %.4f, every particle within "
+              "%.2e of the mean (limit 1e-2), every particle once, launches "
+              "a step %s; a step with N(0, 1) velocities against the "
+              "plain decomposed step: pids equal, %s [%s]"
+              % (tag, sc.n, mean, spread, json.dumps(counts), held(errs),
+                 card))
+
+
+def phase_decomp_adaptive(dev, card):
+    """Phase 10: the adaptive decomposed step at ``dt == params.dt``
+    against the fixed one bit for bit (1M, 2 shards, spill, both modes, 2
+    steps), then a 200-step ``run_adaptive`` rollout (summation) under
+    ``torch.cuda.set_sync_debug_mode("error")``; returns its final state
+    and the mesh for the resume."""
+    db = dam_break(n_side=N_1M, capacity="auto", capacity_headroom=1.15,
+                   device=dev)
+    mesh = make_mesh(devices=[dev] * DECOMP_SHARDS)
+    for mode in PATHS_MODES:
+        tag = "phase 10 (adaptive 1M spill %s)" % mode
+        state = db.state
+        if mode == "continuity":
+            state = init_density(state, db.grid, db.params, device=dev)
+        dist, cap = distribute_state(state, db.grid, mesh)
+        kw = dict(capacity=cap, density_mode=mode)
+        fixed = make_distributed_step_fn(db.grid, db.params, mesh, **kw)
+        adaptive = make_adaptive_distributed_step_fn(db.grid, db.params, mesh,
+                                                     **kw)
+        df, da = dist, dist
+        dt = initial_dt(db.params.dt, dev)[0]
+        for _ in range(2):
+            df, _ = fixed(df)
+            da, _, _dt_next = adaptive(da, dt)
+        for name in ("x", "v", "pid", "rho"):
+            a, b = getattr(da, name), getattr(df, name)
+            if a is not None and not all(torch.equal(p, q)
+                                         for p, q in zip(a, b)):
+                raise AssertionError("%s: %s differs from the fixed step"
+                                     % (tag, name))
+        print("%s: 2 steps at dt = params.dt bit-identical to the fixed "
+              "decomposed step (x, v, pid%s) [%s]"
+              % (tag, ", rho" if mode == "continuity" else "", card))
+    dist, cap = distribute_state(db.state, db.grid, mesh)
+    step = make_adaptive_distributed_step_fn(db.grid, db.params, mesh,
+                                             capacity=cap)
+    step(dist, initial_dt(db.params.dt, dev)[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dt, t = run_adaptive(step, dist, db.params.dt, N_ROLLOUT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (0.0 < float(dt) <= float(np.float32(db.params.dt))
+            and float(t) > 0.0):
+        raise AssertionError("phase 10 rollout: dt %r, t %r" % (float(dt),
+                                                                float(t)))
+    check_complete("phase 10 rollout", out, db.n)
+    if not all(bool(torch.isfinite(x).all()) for x in out.x):
+        raise AssertionError("phase 10 rollout: non-finite positions")
+    print("phase 10 (adaptive rollout): %d adaptive decomposed steps (1M, "
+          "%d shards, spill summation) under sync debug mode \"error\": 0 "
+          "host syncs, %.4f ms/step (host clock), t = %.6g s, dt_next = "
+          "%.6g [%s]" % (N_ROLLOUT, mesh.size, 1e3 * wall / N_ROLLOUT,
+                         float(t), float(dt), card))
+    return db
+
+
+def phase_decomp_resume(dev, card, db):
+    """Phase 10: 2 frames (position, velocity, carried density) from the
+    2-shard continuity run written by the port's writer; the file resumed
+    with ``resume_distributed`` onto 1 shard and onto 2, each state the
+    last frame's, one step each (the two held at the decomposition
+    tolerances), a frame appended, ``pypgsd.verify(deep=True)``."""
+    tag = "phase 10 (resume)"
+    state = init_density(db.state, db.grid, db.params, device=dev)
+    mesh2 = make_mesh(devices=[dev] * DECOMP_SHARDS)
+    dist, cap = distribute_state(state, db.grid, mesh2)
+    kw = dict(density_mode="continuity")
+    step2 = make_distributed_step_fn(db.grid, db.params, mesh2, capacity=cap,
+                                     **kw)
+    fd, path = tempfile.mkstemp(suffix=".gsd")
+    os.close(fd)
+    try:
+        writer = ShardedFrameWriter(path, application="tpgsd_torch.chip_smoke",
+                                    comm=SingleComm())
+        for i in range(2):
+            dist, _aux = step2(dist)
+            got = collect_state(dist, db.n)
+            writer.write_frame({"particles/position": got.x,
+                                "particles/velocity": got.v,
+                                "particles/density": got.rho}, step=i)
+        writer.close()
+        after = {}
+        for n_sh in (1, DECOMP_SHARDS):
+            mesh = make_mesh(devices=[dev] * n_sh)
+            t0 = time.perf_counter()
+            res, rcap, last, w = resume_distributed(path, db.grid, mesh,
+                                                    density_mode="continuity")
+            resume_s = time.perf_counter() - t0
+            back = collect_state(res, db.n)
+            if last != 1 or not (np.array_equal(back.x, got.x)
+                                 and np.array_equal(back.v, got.v)
+                                 and np.array_equal(back.rho, got.rho)):
+                raise AssertionError("%s: the state resumed onto %d shards "
+                                     "is not the last frame" % (tag, n_sh))
+            step = make_distributed_step_fn(db.grid, db.params, mesh,
+                                            capacity=rcap, **kw)
+            res, aux = step(res)
+            if dist_overflow(aux) != (0, 0):
+                raise AssertionError("%s: overflow" % tag)
+            after[n_sh] = collect_state(res, db.n)
+            if n_sh == DECOMP_SHARDS:
+                w.write_frame({"particles/position": after[n_sh].x,
+                               "particles/velocity": after[n_sh].v,
+                               "particles/density": after[n_sh].rho}, step=2)
+            w.close()
+            print("%s: the 2-frame file resumed onto %d shard(s) (%d slots a "
+                  "shard) in %.3f s (host clock), state equal to the last "
+                  "frame, one step taken" % (tag, n_sh, rcap, resume_s))
+        np.testing.assert_allclose(after[1].x, after[DECOMP_SHARDS].x,
+                                   **DECOMP_X)
+        report = tpgsd_torch.pypgsd.verify(path, deep=True)
+        with tpgsd_torch.hoomd.open(path, mode="r") as traj:
+            steps = [int(f.configuration.step) for f in traj]
+            last_x = traj[-1].particles.position
+        if (not report["ok"] or steps != [0, 1, 2]
+                or not np.array_equal(last_x, after[DECOMP_SHARDS].x)):
+            raise AssertionError("%s: file %s, steps %s" % (tag, report,
+                                                            steps))
+        print("%s: 1-shard and 2-shard steps agree (max abs x %.3g); frame "
+              "appended, pypgsd.verify(deep=True) ok, steps %s [%s]"
+              % (tag, float(np.abs(after[1].x - after[DECOMP_SHARDS].x).max()),
+                 steps, card))
+    finally:
+        os.remove(path)
+
+
+def phase_decomp_options_launches(dev, card):
+    """Phase 10: one decomposed 1M step with ``xsph=0.5,
+    surface_tension=0.05, compute_energy=True`` on each layout and mode:
+    the option roles' launches a step (shards x the global step's, plus
+    the energy passes), and the step held against the plain decomposed
+    step from the same state (:func:`hold_decomp_vs_plain`, du/dt
+    included)."""
+    db = dam_break(n_side=N_1M, capacity="auto", capacity_headroom=1.15,
+                   device=dev)
+    mesh = make_mesh(devices=[dev] * DECOMP_SHARDS)
+    launches = {}
+    for k in (K_1M, K_WIDE):
+        layout = "wide" if k > 64 else "spill"
+        grid = db.grid._replace(capacity=k)
+        for mode in PATHS_MODES:
+            path = ("wide " if layout == "wide" else "") + "options " + mode
+            state = slab_state(db, grid, dev, mode)
+            dist, cap = distribute_state(state, grid, mesh)
+            step = make_distributed_step_fn(grid, db.params, mesh,
+                                            capacity=cap, density_mode=mode,
+                                            **DECOMP_OPTIONS)
+            step_p = make_distributed_step_fn(
+                grid, db.params, mesh, capacity=cap, density_mode=mode,
+                use_kernels=False, spill=layout == "spill", **DECOMP_OPTIONS)
+            out, aux, counts = counted_step(step, dist)
+            energy = ({"energy_wide": 1} if layout == "wide"
+                      else {"energy_self": 2, "energy_cross": 2})
+            want = decomp_launches(path, mesh.size)
+            for key, v in energy.items():
+                want[key] = v * mesh.size
+            if counts != want:
+                raise AssertionError("phase 10 (1M %s): launches %s, "
+                                     "expected %s" % (path, counts, want))
+            if not bool(torch.cat(aux.dudt).any()):
+                raise AssertionError("phase 10 (1M %s): du/dt is 0" % path)
+            launches["decomposed " + path] = counts
+            t0 = time.perf_counter()
+            errs = hold_decomp_vs_plain("phase 10 (1M %s)" % path, dist,
+                                        (out, aux), step_p(dist), mode, db.n,
+                                        du=True)
+            print("phase 10 (1M %s with %s): launches a decomposed step %s; "
+                  "against the plain decomposed step (%.1f s): pids equal, %s "
+                  "[%s]" % (path, json.dumps(DECOMP_OPTIONS),
+                            json.dumps(counts), time.perf_counter() - t0,
+                            held(errs), card))
+            del state, dist, out, aux, step_p
+            torch.cuda.empty_cache()
+    return launches
+
+
+def phase_decomposition(dev, card):
+    """Phase 10: the slab decomposition on the card; returns each role's
+    launches in one decomposed 1M step and the ms/step pairs."""
+    launches, ms = phase_decomp_vs_global(dev, card, [dev] * DECOMP_SHARDS)
+    if torch.cuda.device_count() > 1:
+        phase_decomp_vs_global(
+            dev, card, [torch.device("cuda", i) for i in range(DECOMP_SHARDS)],
+            time_steps=False)
+    else:
+        print("phase 10: one visible CUDA device: the shards share cuda:0, "
+              "so cross-device copies were not exercised on this machine")
+    phase_decomp_options(dev, card)
+    phase_decomp_periodic(dev, card)
+    db = phase_decomp_adaptive(dev, card)
+    phase_decomp_resume(dev, card, db)
+    del db
+    launches.update(phase_decomp_options_launches(dev, card))
+    per_role = {}
+    for counts in launches.values():
+        for key, v in counts.items():
+            per_role[key] = max(per_role.get(key, 0), v)
+    return per_role, launches, ms
+
+
 def check_no_reference_modules():
     """The run must not have loaded JAX or the JAX package."""
     loaded = sorted(
@@ -2562,6 +3158,17 @@ def main():
     phase_global_peak(dev, card)
     slab_counts = phase_cycle_1e8(dev, card)
     print("phase 9 ran %.1f s [%s]" % (time.perf_counter() - t9, card))
+    t10 = time.perf_counter()
+    decomp_counts, decomp_paths, decomp_ms = phase_decomposition(dev, card)
+    # the energy pass's cross role runs on the decomposed step alone
+    counts["decomposed options summation"] = decomp_paths[
+        "decomposed options summation"]
+    for path, (ms_d, ms_g) in decomp_ms.items():
+        print("phase 10 (1M %s): %d shards on one device %.4f ms/step, the "
+              "global step %.4f ms/step (ratio %.3f; the decomposition's "
+              "overhead, not scaling) [%s]"
+              % (path, DECOMP_SHARDS, ms_d, ms_g, ms_d / ms_g, card))
+    print("phase 10 ran %.1f s [%s]" % (time.perf_counter() - t10, card))
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"
@@ -2576,6 +3183,8 @@ def main():
             "launches": counts[path][key],
             # the same role's launches in the 1e8 cycle's silent steps
             "slab_launches": slab_counts.get(key, 0),
+            # and in one decomposed 1M step (2 shards)
+            "decomp_launches": decomp_counts.get(key, 0),
             "max_abs_err": errs[key]["abs"],
             "max_scaled_err": errs[key]["scaled"],
             "ms": times[key]["ms"],

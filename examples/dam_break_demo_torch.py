@@ -14,9 +14,15 @@ VTK point clouds.
     python examples/dam_break_demo_torch.py --adaptive --steps 200 --every 10
     python examples/dam_break_demo_torch.py --scenario taylor_green --steps 300
     python examples/dam_break_demo_torch.py --device cpu --n-side 6 --steps 20
+    python examples/dam_break_demo_torch.py --decomp slab --shards 2
 
-The multi-device options of the JAX demo (``--sharded``, ``--decomp``)
-are not offered: the port's decompositions are ROADMAP queue 1 item 9.
+``--decomp slab`` steps the slab domain decomposition
+(``tpgsd_torch.sph.make_distributed_step_fn``) with ``--shards`` shards,
+all placed on ``--device`` (on a one-GPU machine the shards share
+``cuda:0``), and frames through ``collect_state`` / ``collect_aux`` as
+the JAX demo does.  The JAX demo's ``--decomp 2d`` / ``3d`` and
+``--sharded`` are not offered: the 2-D and 3-D decompositions are
+ROADMAP queue 1 item 9, and the GSPMD sharding hint has no counterpart.
 """
 
 import argparse
@@ -68,6 +74,12 @@ def main(argv=None):
     p.add_argument("--spill", action="store_true",
                    help="two-tier spill cell layout (main tier sized at "
                         "1.15x the densest initial cell, clamped to 24-64)")
+    p.add_argument("--decomp", choices=["slab"], default=None,
+                   help="explicit slab domain decomposition with halo "
+                        "exchange and migration (make_distributed_step_fn)")
+    p.add_argument("--shards", type=int, default=2,
+                   help="shards of --decomp slab, all on --device (a "
+                        "divisor of the grid's x cells; default 2)")
     args = p.parse_args(argv)
 
     import numpy
@@ -79,13 +91,18 @@ def main(argv=None):
         scan_simulate,
         scan_simulate_adaptive,
     )
-    from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
+    from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm, make_mesh
     from tpgsd_torch.sph import (
+        collect_aux,
+        collect_state,
         dam_break,
         dam_break_2d,
+        distribute_state,
         hydrostatic_tank,
         init_density,
+        make_adaptive_distributed_step_fn,
         make_adaptive_step_fn,
+        make_distributed_step_fn,
         make_step_fn,
         taylor_green,
     )
@@ -131,9 +148,24 @@ def main(argv=None):
         density_mode=args.density_mode, device=dev,
     )
     if args.adaptive:
-        step = make_adaptive_step_fn(db.grid, db.params, cfl=args.cfl, **kw)
+        kw["cfl"] = args.cfl
+    decomp = args.decomp == "slab"
+    if decomp:
+        nx, shards = db.grid.dims[0], args.shards
+        if shards < 1 or nx % shards:
+            raise ValueError("--shards %d must divide the grid's %d x cells"
+                             % (shards, nx))
+        del kw["device"]
+        mesh = make_mesh(devices=[dev] * shards)
+        state, cap = distribute_state(state, db.grid, mesh)
+        build = (make_adaptive_distributed_step_fn if args.adaptive
+                 else make_distributed_step_fn)
+        step = build(db.grid, db.params, mesh, capacity=cap, **kw)
+        print("decomposed (slab) over %d shards on %s, %d slots a shard"
+              % (shards, dev, cap))
     else:
-        step = make_step_fn(db.grid, db.params, **kw)
+        build = make_adaptive_step_fn if args.adaptive else make_step_fn
+        step = build(db.grid, db.params, **kw)
     print("device %s (resolved: %s)" % (dev, step.resolved))
 
     writer = ShardedFrameWriter(
@@ -146,12 +178,21 @@ def main(argv=None):
             "particles/N": numpy.array([db.n], numpy.uint32),
         },
     )
-    slength = torch.full((db.n,), db.params.h, dtype=torch.float32,
-                         device=state.x.device)
+    if decomp:
+        slength = numpy.full(db.n, db.params.h, numpy.float32)
 
-    def frame_of(s, aux):
-        rho, pres, _overflow = aux
-        return [s.x, s.v, rho, pres, slength]
+        def frame_of(s, aux):
+            # the compact global frame, gathered to the host in pid order
+            xh, vh, _rho = collect_state(s, db.n)
+            rho, pres, _du = collect_aux(s, aux, db.n, params=db.params)
+            return [xh, vh, rho, pres, slength]
+    else:
+        slength = torch.full((db.n,), db.params.h, dtype=torch.float32,
+                             device=dev)
+
+        def frame_of(s, aux):
+            rho, pres, _overflow = aux
+            return [s.x, s.v, rho, pres, slength]
 
     channel = JitDumpChannel(
         writer,

@@ -1226,3 +1226,119 @@ def test_emitted_frame_equals_the_post_step_state_on_the_card(cuda, tmp_path):
                             ("density", rho), ("pressure", p)):
                 assert numpy.array_equal(
                     f.read_chunk(frame, "particles/" + name), t.cpu().numpy())
+
+
+def _by_pid(dist, field, n):
+    """A decomposed state's ``field`` as one ``[n, ...]`` tensor in pid
+    order."""
+    pid = torch.cat(dist.pid).long()
+    vals = torch.cat(getattr(dist, field))
+    out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
+    out[pid[pid >= 0]] = vals[pid >= 0]
+    return out
+
+
+def _decomposed_pair(dev, layout, density_mode, n_shards=2, **kw):
+    """A dam break whose 80 x cells divide by ``n_shards`` on a mesh of
+    ``n_shards`` shards of ``dev``: the "auto" decomposed kernel step and
+    the plain decomposed step (on the kernel step's layout), and the state
+    with seeded N(0, 1) velocities."""
+    from tpgsd_torch.parallel import make_mesh
+    from tpgsd_torch.sph import distribute_state, make_distributed_step_fn
+
+    db = dam_break(n_side=13, box=(4.0, 0.5, 0.5), fill=(1.0, 1.0, 0.5),
+                   capacity=16 if layout == "spill" else 96, device=dev)
+    assert db.grid.dims[0] % n_shards == 0, db.grid.dims
+    rng = numpy.random.default_rng(9)
+    v = torch.from_numpy(
+        rng.standard_normal(tuple(db.state.v.shape)).astype(numpy.float32))
+    state = db.state._replace(v=v.to(dev))
+    if density_mode == "continuity":
+        state = init_density(state, db.grid, db.params, device=dev)
+    mesh = make_mesh(devices=[dev] * n_shards)
+    dist, cap = distribute_state(state, db.grid, mesh)
+    step_k = make_distributed_step_fn(db.grid, db.params, mesh, capacity=cap,
+                                      density_mode=density_mode, **kw)
+    step_p = make_distributed_step_fn(db.grid, db.params, mesh, capacity=cap,
+                                      density_mode=density_mode,
+                                      use_kernels=False,
+                                      spill=layout == "spill", **kw)
+    assert step_k.resolved == {"use_kernels": True,
+                               "spill": layout == "spill",
+                               "density_mode": density_mode}
+    return db, mesh, dist, cap, step_k, step_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+@pytest.mark.parametrize("layout", ["spill", "wide"])
+def test_decomposed_kernel_step_matches_plain(cuda, layout, density_mode):
+    """Three decomposed kernel steps on 4 shards of one card, each against
+    the plain decomposed step from the same state: the same pids in every
+    slot, positions rtol 1e-5, atol 1e-6, summation density rtol 1e-5,
+    atol 1e-6 (scaled), velocities rtol 1e-4, atol 1e-5 (scaled), and the
+    step's change of each particle's velocity within 1e-5 of its largest
+    change plus 1e-4 of its own and the rounding of v (one step moves x
+    by only dt^2 a, so the position check alone passes any acceleration);
+    the launches of a step are 4 times a global step's."""
+    db, mesh, dist, _cap, step_k, step_p = _decomposed_pair(
+        cuda, layout, density_mode, n_shards=4)
+    for _ in range(3):
+        ops.reset_launch_counts()
+        sk, ak = step_k(dist)
+        launched = _launched()
+        sp, ap = step_p(dist)
+        for a, b in zip(sk.pid, sp.pid):
+            assert torch.equal(a, b)
+        live = torch.cat([p >= 0 for p in sk.pid]).cpu().numpy()
+        numpy.testing.assert_allclose(torch.cat(sk.x).cpu().numpy(),
+                                      torch.cat(sp.x).cpu().numpy(),
+                                      rtol=1e-5, atol=1e-6)
+        if density_mode == "summation":
+            _scaled_close(torch.cat(ak.rho), torch.cat(ap.rho), live, 1e-5,
+                          1e-6)
+        else:
+            numpy.testing.assert_allclose(torch.cat(sk.rho).cpu().numpy(),
+                                          torch.cat(sp.rho).cpu().numpy(),
+                                          rtol=1e-4, atol=1e-2)
+        _scaled_close(torch.cat(sk.v), torch.cat(sp.v), live, 1e-4, 1e-5)
+        v0, vk, vp = (_by_pid(st, "v", db.n) for st in (dist, sk, sp))
+        dv = vp - v0
+        tol = 1e-5 * dv.abs().max() + 1e-4 * dv.abs() + 2.0 ** -22 * vp.abs()
+        assert bool(((vk - vp).abs() <= tol).all()), float(
+            ((vk - vp).abs() / dv.abs().max()).max())
+        dist = sk
+    family = "accel_drho" if density_mode == "continuity" else "accel"
+    want = ({family + "_self": 8, family + "_cross": 8} if layout == "spill"
+            else {family + "_wide": 4})
+    if density_mode == "summation":
+        want.update({"density_self": 8, "density_cross": 8}
+                    if layout == "spill" else {"density_wide": 4})
+    assert launched == want
+
+
+@pytest.mark.cuda
+def test_decomposed_adaptive_rollout_makes_no_host_sync(cuda):
+    """A 10-step adaptive rollout of the decomposed step on 2 shards of
+    one card under ``set_sync_debug_mode("error")``."""
+    from tpgsd_torch.sph import (
+        collect_state,
+        make_adaptive_distributed_step_fn,
+        run_adaptive,
+    )
+
+    db, mesh, dist, cap, _k, _p = _decomposed_pair(cuda, "spill",
+                                                    "summation")
+    step = make_adaptive_distributed_step_fn(db.grid, db.params, mesh,
+                                             capacity=cap)
+    step(dist, torch.tensor(db.params.dt, device=cuda))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dt, t = run_adaptive(step, dist, db.params.dt, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert 0.0 < float(dt) <= float(numpy.float32(db.params.dt))
+    assert float(t) > 0.0
+    got = collect_state(out, db.n)
+    assert numpy.isfinite(got.x).all()

@@ -50,6 +50,49 @@ def test_demo_writes_a_readable_trajectory(tmp_path, capsys, flags, resolved):
         numpy.testing.assert_allclose(part.slength, 1.3 * 0.8 / 5, rtol=1e-6)
 
 
+@pytest.mark.parametrize("flags", [[], ["--adaptive", "--density-mode",
+                                          "continuity"]],
+                         ids=["fixed", "adaptive_continuity"])
+def test_demo_slab_decomposition(tmp_path, capsys, flags):
+    """``--decomp slab``: the shards on the CPU, frames gathered by pid
+    through collect_state / collect_aux; the same trajectory as the
+    global step's within the reference's decomposition tolerances."""
+    frames = {}
+    for decomp in (["--decomp", "slab", "--shards", "2"], []):
+        out = str(tmp_path / ("demo%d.gsd" % len(decomp)))
+        dam_break_demo_torch.main(
+            ["--device", "cpu", "--n-side", "5", "--steps", "4", "--every",
+             "2", "--out", out] + decomp + flags
+        )
+        printed = capsys.readouterr().out
+        assert ("decomposed (slab) over 2 shards on cpu" in printed) == bool(
+            decomp)
+        assert "dumped 2 frames" in printed
+        with tpgsd_torch.hoomd.open(out, mode="r") as traj:
+            assert [int(f.configuration.step) for f in traj] == [0, 2]
+            frames[bool(decomp)] = [
+                (f.particles.position, f.particles.velocity,
+                 f.particles.density) for f in traj]
+    for (x_d, v_d, r_d), (x_g, v_g, r_g) in zip(frames[True], frames[False]):
+        assert x_d.shape == (180, 3)
+        numpy.testing.assert_allclose(x_d, x_g, rtol=5e-4, atol=5e-5)
+        numpy.testing.assert_allclose(v_d, v_g, rtol=5e-3, atol=5e-3)
+        numpy.testing.assert_allclose(r_d, r_g, rtol=1e-4)
+
+
+def test_demo_slab_shards_must_divide_the_x_cells(tmp_path):
+    """``--shards`` that does not divide the x cells raises rather than
+    running fewer shards."""
+    nx = dam_break(n_side=5, device="cpu").grid.dims[0]
+    shards = min(s for s in range(2, nx + 2) if nx % s)
+    with pytest.raises(ValueError, match="must divide the grid's %d x cells"
+                       % nx):
+        dam_break_demo_torch.main(
+            ["--device", "cpu", "--n-side", "5", "--steps", "1", "--out",
+             str(tmp_path / "demo.gsd"), "--decomp", "slab", "--shards",
+             str(shards)])
+
+
 def test_demo_on_device_lattice_and_vtu(tmp_path, capsys):
     out = str(tmp_path / "lattice.gsd")
     dam_break_demo_torch.main(

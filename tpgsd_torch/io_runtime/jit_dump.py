@@ -25,7 +25,7 @@ Example:
 
 import torch
 
-from ..sph.step import initial_dt
+from ..sph.step import initial_dt, state_device
 from .dump import AsyncDumpRunner
 
 
@@ -124,7 +124,7 @@ def scan_simulate_adaptive(step_fn, state, dt0, n_steps, channel, frame_of,
         ``(state, dt_next, t)`` as device tensors, once the device has
         finished; the channel is flushed but left open.
     """
-    dt, t = initial_dt(dt0, state.x.device)
+    dt, t = initial_dt(dt0, state_device(state))
     for i in range(int(n_steps)):
         state, aux, dt_next = step_fn(state, dt)
         if i % every == 0:

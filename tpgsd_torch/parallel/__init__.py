@@ -10,6 +10,9 @@ pgsd/pgsd/pgsd.c MPI_File_* + MPI_Allgather offset protocol):
   shared file - the role of ``MPI_File_write_at``.
 
 Every writer and reader takes its communicator explicitly (``comm=``).
+
+:func:`make_mesh` builds the 1-D device mesh of the decomposed SPH step
+(:mod:`tpgsd_torch.sph.distributed`), driven from one process.
 """
 
 from .shard_io import (  # noqa: F401
@@ -21,4 +24,5 @@ from .shard_io import (  # noqa: F401
     write_sharded_chunk,
 )
 from .comm import SingleComm  # noqa: F401
+from .mesh import Mesh, make_mesh  # noqa: F401
 from .fs import direct_write_policy, filesystem_kind  # noqa: F401

@@ -19,6 +19,14 @@ continuity mode by :func:`slab_init_density`) lays out one x-slab at a
 time, for particle counts whose global layout would not fit the card;
 its frames stream per slab through
 :class:`tpgsd_torch.io_runtime.SlabDumpChannel`.
+
+The slab domain decomposition (:func:`make_distributed_step_fn`, its
+adaptive form :func:`make_adaptive_distributed_step_fn`) steps a state
+partitioned by :func:`distribute_state` over the shards of a
+:func:`tpgsd_torch.parallel.make_mesh` mesh from one process, with halo
+exchange and particle migration; several shards may share one GPU.
+:func:`collect_state` / :func:`collect_aux` gather it back to the host
+and :func:`resume_distributed` re-slabs a trajectory's last frame.
 """
 
 from .cells import (
@@ -33,8 +41,18 @@ from .cells import (
     scatter_to_cells_soa,
 )
 from .bigstep import make_slab_step_fn, slab_init_density
-from .checkpoint import resume
+from .checkpoint import resume, resume_distributed
 from .dam_break import DamBreak, dam_break
+from .distributed import (
+    CollectedState,
+    DistAux,
+    DistState,
+    collect_aux,
+    collect_state,
+    distribute_state,
+    make_adaptive_distributed_step_fn,
+    make_distributed_step_fn,
+)
 from .kernels import CubicSpline, WendlandC2
 from .scenarios import (
     Scenario,
@@ -58,8 +76,11 @@ from .step import (
 
 __all__ = [
     "CellGrid",
+    "CollectedState",
     "CubicSpline",
     "DamBreak",
+    "DistAux",
+    "DistState",
     "SPHParams",
     "SPHState",
     "Scenario",
@@ -67,19 +88,25 @@ __all__ = [
     "auto_capacity",
     "build_cells",
     "build_cells_spill",
+    "collect_aux",
+    "collect_state",
     "dam_break",
     "dam_break_2d",
     "density_and_pressure",
+    "distribute_state",
     "energy_rate",
     "gather_from_cells",
     "hydrostatic_tank",
     "init_density",
+    "make_adaptive_distributed_step_fn",
     "make_adaptive_step_fn",
+    "make_distributed_step_fn",
     "make_grid",
     "make_slab_step_fn",
     "make_step_fn",
     "neighbor_table",
     "resume",
+    "resume_distributed",
     "run_adaptive",
     "scatter_to_cells",
     "scatter_to_cells_soa",

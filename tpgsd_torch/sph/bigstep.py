@@ -222,16 +222,7 @@ def make_slab_step_fn(
                 "density_mode": density_mode}
     kt = 2 * k if spill else k  # retained slots per cell
 
-    if use_kernels:
-        density_spill, accel_spill = ops.density_spill, ops.accel_spill
-        accel_drho_spill = ops.accel_drho_spill
-        density, accel, accel_drho = ops.density, ops.accel, ops.accel_drho
-    else:
-        density_spill = ops.density_spill_plain
-        accel_spill = ops.accel_spill_plain
-        accel_drho_spill = ops.accel_drho_spill_plain
-        density, accel = ops.density_plain, ops.accel_plain
-        accel_drho = ops.accel_drho_plain
+    pairs = ops.pair_ops(use_kernels, spill, continuity)
 
     lo_np = np.asarray(grid.lo, np.float32)
     hi_np = lo_np + grid.cell_size * np.asarray(grid.dims, np.float32)
@@ -278,7 +269,7 @@ def make_slab_step_fn(
             if continuity:
                 rho_a, p_a = finish_rho(soa_a[6], m_a)
                 rho_b, p_b = finish_rho(soa_b[6], m_b)
-                out_a, out_b = accel_drho_spill(
+                out_a, out_b = pairs.momentum(
                     soa_a[:3], soa_a[3:6], rho_a, p_a, m_a,
                     soa_b[:3], soa_b[3:6], rho_b, p_b, m_b,
                     ext_grid, params, delta_sph=delta_sph, kernel=kernel,
@@ -288,11 +279,11 @@ def make_slab_step_fn(
                     bundle_of(out_a[..., :3], out_a[..., 3], zero, m_a),
                     bundle_of(out_b[..., :3], out_b[..., 3], zero, m_b),
                 ], dim=1)
-            rho_a, rho_b = density_spill(soa_a[:3], m_a, soa_b[:3], m_b,
+            rho_a, rho_b = pairs.density(soa_a[:3], m_a, soa_b[:3], m_b,
                                          ext_grid, params, kernel=kernel)
             rho_a, p_a = finish_rho(rho_a, m_a)
             rho_b, p_b = finish_rho(rho_b, m_b)
-            acc_a, acc_b = accel_spill(
+            acc_a, acc_b = pairs.momentum(
                 soa_a[:3], soa_a[3:6], rho_a, p_a, m_a,
                 soa_b[:3], soa_b[3:6], rho_b, p_b, m_b,
                 ext_grid, params, kernel=kernel,
@@ -301,16 +292,16 @@ def make_slab_step_fn(
                               bundle_of(acc_b, rho_b, p_b, m_b)], dim=1)
         if continuity:
             rho_d, p_d = finish_rho(soa_a[6], m_a)
-            out4 = accel_drho(soa_a[:3], soa_a[3:6], rho_d, p_d, m_a,
-                              ext_grid, params, delta_sph=delta_sph,
-                              kernel=kernel)
+            out4 = pairs.momentum(soa_a[:3], soa_a[3:6], rho_d, p_d, m_a,
+                                  ext_grid, params, delta_sph=delta_sph,
+                                  kernel=kernel)
             out4 = out4.permute(1, 2, 0)
             return bundle_of(out4[..., :3], out4[..., 3],
                              out4.new_zeros(out4.shape[:-1]), m_a)
-        rho_d, p_d = finish_rho(density(soa_a[:3], m_a, ext_grid, params,
-                                        kernel=kernel), m_a)
-        acc = accel(soa_a[:3], soa_a[3:6], rho_d, p_d, m_a, ext_grid, params,
-                    kernel=kernel)
+        rho_d, p_d = finish_rho(pairs.density(soa_a[:3], m_a, ext_grid,
+                                              params, kernel=kernel), m_a)
+        acc = pairs.momentum(soa_a[:3], soa_a[3:6], rho_d, p_d, m_a, ext_grid,
+                             params, kernel=kernel)
         return bundle_of(acc.permute(1, 2, 0), rho_d, p_d, m_a)
 
     def check(state, dump):

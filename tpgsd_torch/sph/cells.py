@@ -167,19 +167,23 @@ def sorted_runs(cid, n_query):
     return order, cid_s, iota - run_start, starts
 
 
-def _sorted_slot_map(cid, n_query, capacity):
+def _sorted_slot_map(cid, n_query, capacity, live_rows=None):
     """:func:`sorted_runs` and the sorted-order gather map.
 
     Returns ``(order, cid_s, valid, gidx, slot, starts)`` as in the
     reference: ``gidx[q, k]`` is the sorted position filling slot
     ``(q, k)`` (``n`` = empty) and ``slot`` is each sorted particle's
-    (unclamped) slot within its cell.
+    (unclamped) slot within its cell.  ``live_rows`` is the count of
+    leading rows that may hold live slots: rows past it (sentinel cells,
+    such as the dead slots of a slab) map to empty.
     """
     n = cid.shape[0]
     order, cid_s, slot, starts = sorted_runs(cid, n_query)
     counts = torch.diff(starts, append=starts.new_full((1,), n))
     kslots = torch.arange(capacity, dtype=torch.int64, device=cid.device)
     valid = kslots[None, :] < torch.clamp(counts, max=capacity)[:, None]
+    if live_rows is not None and live_rows < n_query:
+        valid[live_rows:] = False
     gidx = torch.where(valid, starts[:, None] + kslots[None, :], n)
     return order, cid_s, valid, gidx, slot, starts
 

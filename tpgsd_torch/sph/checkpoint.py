@@ -9,10 +9,14 @@ pgsd/pgsd/pgsd.c:1630-1639 frame-counter derivation).
 
 :func:`resume` reads the last frame back through the port's
 :class:`~tpgsd_torch.parallel.ShardedTrajectoryReader` onto a device and
-returns the writer positioned to append.  The decomposed resumes
-(``resume_distributed*``) wait for the port's decompositions.
+returns the writer positioned to append; :func:`resume_distributed`
+re-slabs the last frame onto a mesh for the slab decomposition.  The 2-D
+and 3-D resumes wait for those decompositions.
 """
 
+import numpy
+
+from ..parallel.comm import SingleComm
 from ..parallel.shard_io import ShardedFrameWriter, ShardedTrajectoryReader
 from .step import SPHState
 
@@ -84,3 +88,54 @@ def resume(name, *, comm, device="cuda", extra_chunks=(),
                                 comm=comm)
     extras = {k: chunks[k] for k in extra_chunks}
     return state, step, writer, extras
+
+
+def resume_distributed(name, grid, mesh, capacity=None,
+                       application="tpgsd.sph", decomp_axis=0,
+                       density_mode="summation"):
+    """Resume the slab-decomposed loop from the last complete frame of
+    ``name``.
+
+    The particles are re-partitioned into slab ownership for ``mesh``
+    (:func:`~tpgsd_torch.sph.distributed.distribute_state`), whose size
+    may differ from the writing run's: ownership is re-derived from the
+    positions.  ``decomp_axis`` selects x- (0) or y-slabs (1), as the
+    step builder's.  ``density_mode="continuity"`` also re-slabs the
+    frame's ``particles/density`` chunk into ``DistState.rho``: the
+    carried density travels with its particle.  The decomposed loop is
+    driven from one process, so the file is read whole and the writer is
+    a single-controller one (``comm=SingleComm()``).
+
+    Returns:
+        ``(dist_state, capacity, step, writer)``: the
+        :class:`~tpgsd_torch.sph.distributed.DistState` on the mesh's
+        devices, the slots a shard, the last ``configuration/step`` value
+        (or ``nframes - 1``) and a :class:`ShardedFrameWriter` opened in
+        append mode.
+    """
+    from .. import fl
+    from .distributed import distribute_state
+
+    continuity = density_mode == "continuity"
+    rho = None
+    with fl.open(name, "r") as f:
+        if f.nframes == 0:
+            raise ValueError(
+                "cannot resume from an empty trajectory: " + str(name))
+        last = f.nframes - 1
+        x = numpy.asarray(f.read_chunk(last, "particles/position"))
+        v = numpy.asarray(f.read_chunk(last, "particles/velocity"))
+        if continuity:
+            _require_density(f, last, name)
+            rho = numpy.asarray(f.read_chunk(last, "particles/density"))
+        if f.chunk_exists(last, "configuration/step"):
+            step = int(f.read_chunk(last, "configuration/step")[0])
+        else:
+            step = last
+    dist, cap = distribute_state(
+        SPHState(x=x, v=v, rho=rho), grid, mesh, capacity=capacity,
+        decomp_axis=decomp_axis,
+    )
+    writer = ShardedFrameWriter(name, mode="a", application=application,
+                                comm=SingleComm())
+    return dist, cap, step, writer

@@ -65,6 +65,7 @@ wrapper adds one to :data:`launch_counts` where it launches its kernel.
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -859,31 +860,68 @@ def surface_tension(dense_x, dense_rho, mask, grid, params, gamma,
     ghost grid, selected back to the interior rows (a halo cell's own
     neighbourhood is truncated) and only then ghost-expanded, unshifted,
     for the force pass.  CPU tensors take the plain passes."""
-    c = grid.n_cells
-    x, rho, m = dense_x, dense_rho[:c], mask[:c]
-
-    def normals(t, g):
-        tx, tr, tm = t
-        return st_normals_pairs(tx, tm, tx, tr, tm, g, params, kernel)
-
-    def force(t, g):
-        return st_force_pairs(*t, *t, g, params, gamma, kernel)
-
-    n = _single_tier(normals, (x, rho, m), grid, wrap_axes)
-    # the normals ride as element 1: _ghost_tier shifts only element 0
-    return _single_tier(force, (x, n, rho, m), grid, wrap_axes)
+    n = st_normals(dense_x, dense_rho, mask, grid, params, kernel, wrap_axes)
+    return st_force(dense_x, n, dense_rho, mask, grid, params, gamma, kernel,
+                    wrap_axes)
 
 
 def surface_tension_plain(dense_x, dense_rho, mask, grid, params, gamma,
                           kernel=WendlandC2, wrap_axes=None):
     """Plain version of :func:`surface_tension` (as
     :func:`density_plain`)."""
+    n = st_normals_plain(dense_x, dense_rho, mask, grid, params, kernel,
+                         wrap_axes)
+    return st_force_plain(dense_x, n, dense_rho, mask, grid, params, gamma,
+                          kernel, wrap_axes)
+
+
+def st_normals(dense_x, dense_rho, mask, grid, params, kernel=WendlandC2,
+               wrap_axes=None):
+    """The normals pass of :func:`surface_tension` alone -> ``[3, C,
+    K]``: on the ghost grid, selected back to the interior rows, with
+    ``wrap_axes``.  A decomposed step exchanges the owners' normals of
+    its halo planes between this pass and :func:`st_force`."""
+    c = grid.n_cells
+
+    def normals(t, g):
+        tx, tr, tm = t
+        return st_normals_pairs(tx, tm, tx, tr, tm, g, params, kernel)
+
+    return _single_tier(normals, (dense_x, dense_rho[:c], mask[:c]), grid,
+                        wrap_axes)
+
+
+def st_normals_plain(dense_x, dense_rho, mask, grid, params,
+                     kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`st_normals` (as :func:`density_plain`)."""
     c = grid.n_cells
     x, rho, m = dense_x, dense_rho[:c], mask[:c]
-    n = st_normals_pairs_plain(x, m, x, rho, m, grid, params, kernel,
-                               wrap_axes)
-    return st_force_pairs_plain(x, n, rho, m, x, n, rho, m, grid, params,
-                                gamma, kernel, wrap_axes)
+    return st_normals_pairs_plain(x, m, x, rho, m, grid, params, kernel,
+                                  wrap_axes)
+
+
+def st_force(dense_x, normals, dense_rho, mask, grid, params, gamma,
+             kernel=WendlandC2, wrap_axes=None):
+    """The force pass of :func:`surface_tension` from complete
+    ``normals [3, C, K]`` -> ``[3, C, K]``; with ``wrap_axes`` the
+    normals are ghost-expanded unshifted."""
+    c = grid.n_cells
+
+    def force(t, g):
+        return st_force_pairs(*t, *t, g, params, gamma, kernel)
+
+    # the normals ride as element 1: _ghost_tier shifts only element 0
+    return _single_tier(force, (dense_x, normals, dense_rho[:c], mask[:c]),
+                        grid, wrap_axes)
+
+
+def st_force_plain(dense_x, normals, dense_rho, mask, grid, params, gamma,
+                   kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`st_force` (as :func:`density_plain`)."""
+    c = grid.n_cells
+    x, rho, m = dense_x, dense_rho[:c], mask[:c]
+    return st_force_pairs_plain(x, normals, rho, m, x, normals, rho, m, grid,
+                                params, gamma, kernel, wrap_axes)
 
 
 # --------------------------------------------------------------------------
@@ -1056,17 +1094,13 @@ def accel_drho_spill_plain(
     )
 
 
-def _surface_tension_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b, grid,
-                              params, gamma, kernel, plain, wrap_axes):
-    """Two-tier surface tension ``(AA + AB, BB + BA)`` as ``[C, K, 3]``
-    views: both tiers' normals are complete (their own and the other
-    tier's neighbours) before any force pass.  ``plain`` and
-    ``wrap_axes`` as in :func:`_accel_two_tier`; on the ghost halo the
-    normals are selected back to the interior rows before the force
-    pass expands them again, unshifted (element 1 of its tiers)."""
+def _st_normals_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b, grid,
+                         params, kernel, plain, wrap_axes):
+    """Two-tier surface normals ``(AA + AB, BB + BA)``, each ``[3, C,
+    K]``, complete (their own and the other tier's neighbours).
+    ``plain`` and ``wrap_axes`` as in :func:`_accel_two_tier`; on the
+    ghost halo the normals are selected back to the interior rows."""
     c = grid.n_cells
-    a = (x_a, rho_a[:c], mask_a[:c])
-    b = (x_b, rho_b[:c], mask_b[:c])
     table_wrap = wrap_axes if plain else None
 
     def normals(cen, nbr, role, g):
@@ -1075,6 +1109,20 @@ def _surface_tension_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b, grid,
             return st_normals_pairs_plain(*args, table_wrap)
         return st_normals_pairs(*args, cross=role == "cross")
 
+    return _two_tier(normals, (x_a, rho_a[:c], mask_a[:c]),
+                     (x_b, rho_b[:c], mask_b[:c]), grid,
+                     None if plain else wrap_axes)
+
+
+def _st_force_two_tier(x_a, n_a, rho_a, mask_a, x_b, n_b, rho_b, mask_b,
+                       grid, params, gamma, kernel, plain, wrap_axes):
+    """Two-tier surface-tension force ``(AA + AB, BB + BA)`` as ``[C, K,
+    3]`` views from complete normals ``n_a``, ``n_b`` (``[3, C, K]``);
+    on the ghost halo the normals are expanded again, unshifted (element
+    1 of its tiers)."""
+    c = grid.n_cells
+    table_wrap = wrap_axes if plain else None
+
     def force(cen, nbr, role, g):
         if plain:
             return st_force_pairs_plain(*cen, *nbr, g, params, gamma, kernel,
@@ -1082,12 +1130,23 @@ def _surface_tension_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b, grid,
         return st_force_pairs(*cen, *nbr, g, params, gamma, kernel,
                               cross=role == "cross")
 
-    ghost = None if plain else wrap_axes
-    n_a, n_b = _two_tier(normals, a, b, grid, ghost)
     f_a, f_b = _two_tier(
-        force, (x_a, n_a, a[1], a[2]), (x_b, n_b, b[1], b[2]), grid, ghost
+        force, (x_a, n_a, rho_a[:c], mask_a[:c]),
+        (x_b, n_b, rho_b[:c], mask_b[:c]), grid,
+        None if plain else wrap_axes,
     )
     return f_a.permute(1, 2, 0), f_b.permute(1, 2, 0)
+
+
+def _surface_tension_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b, grid,
+                              params, gamma, kernel, plain, wrap_axes):
+    """Two-tier surface tension ``(AA + AB, BB + BA)`` as ``[C, K, 3]``
+    views: both tiers' normals are complete before any force pass."""
+    n_a, n_b = _st_normals_two_tier(x_a, rho_a, mask_a, x_b, rho_b, mask_b,
+                                    grid, params, kernel, plain, wrap_axes)
+    return _st_force_two_tier(x_a, n_a, rho_a, mask_a, x_b, n_b, rho_b,
+                              mask_b, grid, params, gamma, kernel, plain,
+                              wrap_axes)
 
 
 def surface_tension_spill(dense_x_a, dense_rho_a, mask_a, dense_x_b,
@@ -1113,3 +1172,132 @@ def surface_tension_spill_plain(dense_x_a, dense_rho_a, mask_a, dense_x_b,
         dense_x_a, dense_rho_a, mask_a, dense_x_b, dense_rho_b, mask_b, grid,
         params, gamma, kernel, True, wrap_axes,
     )
+
+
+def st_normals_spill(dense_x_a, dense_rho_a, mask_a, dense_x_b, dense_rho_b,
+                     mask_b, grid, params, kernel=WendlandC2, wrap_axes=None):
+    """The normals passes of :func:`surface_tension_spill` alone: ``(n_a,
+    n_b)``, each ``[3, C, K]`` (four launches on CUDA).  A decomposed
+    step exchanges the owners' normals of its halo planes between these
+    and :func:`st_force_spill`."""
+    return _st_normals_two_tier(dense_x_a, dense_rho_a, mask_a, dense_x_b,
+                                dense_rho_b, mask_b, grid, params, kernel,
+                                False, wrap_axes)
+
+
+def st_normals_spill_plain(dense_x_a, dense_rho_a, mask_a, dense_x_b,
+                           dense_rho_b, mask_b, grid, params,
+                           kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`st_normals_spill` (as
+    :func:`density_spill_plain`)."""
+    return _st_normals_two_tier(dense_x_a, dense_rho_a, mask_a, dense_x_b,
+                                dense_rho_b, mask_b, grid, params, kernel,
+                                True, wrap_axes)
+
+
+def st_force_spill(dense_x_a, normals_a, dense_rho_a, mask_a, dense_x_b,
+                   normals_b, dense_rho_b, mask_b, grid, params, gamma,
+                   kernel=WendlandC2, wrap_axes=None):
+    """The force passes of :func:`surface_tension_spill` from complete
+    normals (``[3, C, K]`` each): ``(st_a, st_b)``, each ``[C, K, 3]``
+    (four launches on CUDA)."""
+    return _st_force_two_tier(dense_x_a, normals_a, dense_rho_a, mask_a,
+                              dense_x_b, normals_b, dense_rho_b, mask_b, grid,
+                              params, gamma, kernel, False, wrap_axes)
+
+
+def st_force_spill_plain(dense_x_a, normals_a, dense_rho_a, mask_a,
+                         dense_x_b, normals_b, dense_rho_b, mask_b, grid,
+                         params, gamma, kernel=WendlandC2, wrap_axes=None):
+    """Plain version of :func:`st_force_spill` (as
+    :func:`density_spill_plain`)."""
+    return _st_force_two_tier(dense_x_a, normals_a, dense_rho_a, mask_a,
+                              dense_x_b, normals_b, dense_rho_b, mask_b, grid,
+                              params, gamma, kernel, True, wrap_axes)
+
+
+def _energy_two_tier(a, b, grid, params, kernel, plain, wrap_axes):
+    """Two-tier internal-energy rates ``(AA + AB, BB + BA)``, each ``[C,
+    K]``, over tiers ``(x, v, rho, p, mask)``; ``plain`` and
+    ``wrap_axes`` as in :func:`_accel_two_tier`."""
+    c = grid.n_cells
+    a, b = (t[:2] + tuple(f[:c] for f in t[2:]) for t in (a, b))
+    if plain or _on_cpu(*a, *b):
+        table_wrap = wrap_axes if plain else None
+
+        def pairs(cen, nbr, role, g):
+            return energy_pairs_plain(*cen, *nbr, g, params, kernel,
+                                      table_wrap)
+    else:
+        a, b = (
+            t[:3] + (pressure_plane(t[2], t[3], params, kernel),) + t[4:]
+            for t in (a, b)
+        )
+
+        def pairs(cen, nbr, role, g):
+            return _launch_accel(*cen, *nbr, g, params, kernel, role,
+                                 extra="energy")
+
+    return _two_tier(pairs, a, b, grid, None if plain else wrap_axes)
+
+
+def energy_spill(
+    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
+    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
+    grid, params, kernel=WendlandC2, wrap_axes=None,
+):
+    """Two-tier internal-energy rate, the conjugate of
+    :func:`accel_spill` on the same operands: ``(du_a, du_b)``, each
+    ``[C, K]``.  CPU tensors take the plain pair passes; CUDA tensors
+    launch the energy instance of the momentum kernel four times
+    (``energy_self``, ``energy_cross``)."""
+    return _energy_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, False, wrap_axes,
+    )
+
+
+def energy_spill_plain(
+    dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a,
+    dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b,
+    grid, params, kernel=WendlandC2, wrap_axes=None,
+):
+    """Plain version of :func:`energy_spill` (as
+    :func:`density_spill_plain`)."""
+    return _energy_two_tier(
+        (dense_x_a, dense_v_a, dense_rho_a, dense_p_a, mask_a),
+        (dense_x_b, dense_v_b, dense_rho_b, dense_p_b, mask_b),
+        grid, params, kernel, True, wrap_axes,
+    )
+
+
+# --------------------------------------------------------------------------
+# the one choice of pair passes (global, slab-sequential and decomposed
+# steps)
+# --------------------------------------------------------------------------
+
+
+class PairOps(NamedTuple):
+    """The pair passes of one layout and density mode (:func:`pair_ops`),
+    with the signatures of the entry points they name."""
+
+    density: object  # density / density_spill
+    momentum: object  # accel, or accel_drho in continuity mode (+ _spill)
+    energy: object  # energy / energy_spill
+    normals: object  # st_normals / st_normals_spill
+    force: object  # st_force / st_force_spill
+    surface_tension: object  # surface_tension / surface_tension_spill
+
+
+def pair_ops(use_kernels, spill, continuity):
+    """The pair passes a step runs: the two-tier ``*_spill`` entry points
+    with ``spill``, the single-tier ones otherwise; the momentum pass
+    fused with drho/dt (``accel_drho``) in continuity mode; the kernels'
+    entry points with ``use_kernels``, their ``*_plain`` versions
+    otherwise."""
+    suffix = ("_spill" if spill else "") + ("" if use_kernels else "_plain")
+    names = globals()
+    return PairOps(*(names[n + suffix] for n in (
+        "density", "accel_drho" if continuity else "accel", "energy",
+        "st_normals", "st_force", "surface_tension")))

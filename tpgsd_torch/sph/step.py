@@ -114,12 +114,14 @@ def _carried_density(rho_cur, drho, dt, params):
 
 
 def _integrate(x, v, acc, dt, params, lo, hi, drift_dv=None,
-               wrapped_axes=None):
+               wrapped_axes=None, raw=False):
     """Symplectic Euler (kick then drift, ``drift_dv`` added to the drift
     velocity only) and reflective walls with damping (reflect, then
     clip), except the modular wrap on ``wrapped_axes`` -> ``(x, v)``.
-    The one copy of this arithmetic, so the global and slab steps agree
-    bit for bit."""
+    The one copy of this arithmetic, so the global, slab and decomposed
+    steps agree bit for bit.  ``raw`` also returns the positions before
+    the wrap (walls applied), from which the decomposed step detects a
+    crossing of the periodic seam -> ``(x, v, x_raw)``."""
     v_new = (v + dt * acc) * params.velocity_damping
     x_new = x + dt * (v_new if drift_dv is None else v_new + drift_dv)
     under = x_new < lo
@@ -129,12 +131,14 @@ def _integrate(x, v, acc, dt, params, lo, hi, drift_dv=None,
     reflected = torch.clamp(reflected, lo, hi)
     bounce = under | over
     if wrapped_axes is not None:
+        x_raw = torch.where(wrapped_axes, x_new, reflected) if raw else None
         wrapped = lo + torch.remainder(x_new - lo, hi - lo)
         x_new = torch.where(wrapped_axes, wrapped, reflected)
         bounce = bounce & ~wrapped_axes
     else:
-        x_new = reflected
-    return x_new, torch.where(bounce, -params.wall_damping * v_new, v_new)
+        x_new = x_raw = reflected
+    v_new = torch.where(bounce, -params.wall_damping * v_new, v_new)
+    return (x_new, v_new, x_raw) if raw else (x_new, v_new)
 
 
 #: values per ``[B, K, 27K]`` pair plane of the plain pair passes; bounds
@@ -826,15 +830,11 @@ def make_step_fn(
                 "tpgsd_torch.sph.init_density(state, grid, params)"
             )
 
-    surface_tension_spill = (
-        ops.surface_tension_spill if use_kernels
-        else ops.surface_tension_spill_plain
-    )
+    # the kernels (the ghost halo for ``wrap``) or the plain passes (the
+    # wrapped table and minimum image), on the layout and mode
+    pairs = ops.pair_ops(use_kernels, spill, continuity)
 
     if spill and continuity:
-        accel_drho_spill = (
-            ops.accel_drho_spill if use_kernels else ops.accel_drho_spill_plain
-        )
 
         @torch.inference_mode()
         def step_continuity_spill(state, dt=params.dt):
@@ -847,14 +847,14 @@ def make_step_fn(
             soa_b = scatter_to_cells_soa(xvr, cells, grid, slot_base=k, capacity=k)
             rho_a, p_a = finish_rho(soa_a[6], cells.mask)
             rho_b, p_b = finish_rho(soa_b[6], sp.mask)
-            out_a, out_b = accel_drho_spill(
+            out_a, out_b = pairs.momentum(
                 soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
                 soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
                 grid, params, kernel=kernel, delta_sph=delta_sph,
                 wrap_axes=wrap, xsph=xsph > 0,
             )  # [C, K, 4 (+3 xsph)]
             if surface_tension > 0:
-                st_a, st_b = surface_tension_spill(
+                st_a, st_b = pairs.surface_tension(
                     soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b, sp.mask,
                     grid, params, surface_tension, kernel=kernel,
                     wrap_axes=wrap,
@@ -869,8 +869,6 @@ def make_step_fn(
         return step_continuity_spill
 
     if spill:
-        density_spill = ops.density_spill if use_kernels else ops.density_spill_plain
-        accel_spill = ops.accel_spill if use_kernels else ops.accel_spill_plain
 
         @torch.inference_mode()
         def step_spill(state, dt=params.dt):
@@ -880,19 +878,19 @@ def make_step_fn(
             xv = torch.cat([x, v], dim=-1)
             soa_a = scatter_to_cells_soa(xv, cells, grid)
             soa_b = scatter_to_cells_soa(xv, cells, grid, slot_base=k, capacity=k)
-            rho_a, rho_b = density_spill(
+            rho_a, rho_b = pairs.density(
                 soa_a[:3], cells.mask, soa_b[:3], sp.mask, grid, params,
                 kernel=kernel, wrap_axes=wrap,
             )
             rho_a, p_a = finish_rho(rho_a, cells.mask)
             rho_b, p_b = finish_rho(rho_b, sp.mask)
-            acc_a, acc_b = accel_spill(
+            acc_a, acc_b = pairs.momentum(
                 soa_a[:3], soa_a[3:], rho_a, p_a, cells.mask,
                 soa_b[:3], soa_b[3:], rho_b, p_b, sp.mask,
                 grid, params, kernel=kernel, wrap_axes=wrap, xsph=xsph > 0,
             )
             if surface_tension > 0:
-                st_a, st_b = surface_tension_spill(
+                st_a, st_b = pairs.surface_tension(
                     soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b, sp.mask,
                     grid, params, surface_tension, kernel=kernel,
                     wrap_axes=wrap,
@@ -911,69 +909,22 @@ def make_step_fn(
         return step_spill
 
     # single tier: the kernels (the self role up to K = 64, the wide
-    # kernels past it) take the ghost halo, the plain pair passes the
-    # wrapped table and minimum image
-    # the momentum passes return [3 or 4 (+3 xsph), C, K]
-    if use_kernels:
-        def density(dense_x, m):
-            return ops.density(
-                dense_x, m, grid, params, kernel=kernel, wrap_axes=wrap
-            )
+    # kernels past it); the momentum pass returns [3 or 4 (+3 xsph), C, K]
+    mom_kw = {"delta_sph": delta_sph} if continuity else {}
 
-        def accel(dense_x, dense_v, rho, p, m):
-            return ops.accel(
-                dense_x, dense_v, rho, p, m, grid, params, kernel=kernel,
-                wrap_axes=wrap, xsph=xsph > 0,
-            )
+    def density(dense_x, m):
+        return pairs.density(dense_x, m, grid, params, kernel=kernel,
+                             wrap_axes=wrap)
 
-        def accel_drho(dense_x, dense_v, rho, p, m):
-            return ops.accel_drho(
-                dense_x, dense_v, rho, p, m, grid, params, kernel=kernel,
-                delta_sph=delta_sph, wrap_axes=wrap, xsph=xsph > 0,
-            )
+    def momentum(dense_x, dense_v, rho, p, m):
+        return pairs.momentum(dense_x, dense_v, rho, p, m, grid, params,
+                              kernel=kernel, wrap_axes=wrap, xsph=xsph > 0,
+                              **mom_kw)
 
-        def surface_tension_pass(dense_x, rho, m):
-            return ops.surface_tension(
-                dense_x, rho, m, grid, params, surface_tension,
-                kernel=kernel, wrap_axes=wrap,
-            )
-    else:
-        nbr = neighbor_index(grid, dev, periodic)
-        mimage = minimum_image(grid, dev, periodic)
-
-        def density(dense_x, m):
-            return _density_blocks(
-                dense_x, m, dense_x, m, nbr, params, kernel, mimage
-            )
-
-        def with_xsph(out, dense_x, dense_v, rho, m):
-            if xsph > 0:
-                out = torch.cat([out, _xsph_blocks(
-                    dense_x, dense_v, rho, m, dense_x, dense_v, rho, m, nbr,
-                    params, kernel, mimage,
-                )])
-            return out
-
-        def accel(dense_x, dense_v, rho, p, m):
-            return with_xsph(_accel_blocks(
-                dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
-                nbr, params, kernel, mimage,
-            ), dense_x, dense_v, rho, m)
-
-        def accel_drho(dense_x, dense_v, rho, p, m):
-            return with_xsph(_accel_drho_blocks(
-                dense_x, dense_v, rho, p, m, dense_x, dense_v, rho, p, m,
-                nbr, params, kernel, delta_sph, mimage,
-            ), dense_x, dense_v, rho, m)
-
-        def surface_tension_pass(dense_x, rho, m):
-            n = _st_normals_blocks(
-                dense_x, m, dense_x, rho, m, nbr, params, kernel, mimage
-            )
-            return _st_force_blocks(
-                dense_x, n, rho, m, dense_x, n, rho, m, nbr, params, kernel,
-                surface_tension, mimage,
-            )
+    def surface_tension_pass(dense_x, rho, m):
+        return pairs.surface_tension(dense_x, rho, m, grid, params,
+                                     surface_tension, kernel=kernel,
+                                     wrap_axes=wrap)
 
     if continuity:
 
@@ -987,7 +938,7 @@ def make_step_fn(
             )
             m = cells.mask[:c]
             rho_d, p_d = finish_rho(xvr[6], cells.mask)
-            out4 = accel_drho(xvr[:3], xvr[3:6], rho_d, p_d, m)
+            out4 = momentum(xvr[:3], xvr[3:6], rho_d, p_d, m)
             if surface_tension > 0:
                 out4[:3] += surface_tension_pass(xvr[:3], rho_d, m)
             out = gather_bundle(out4.permute(1, 2, 0), cells)
@@ -1005,7 +956,7 @@ def make_step_fn(
         dense_x, dense_v = xv[:3], xv[3:]
         m = cells.mask[:c]
         rho, p = finish_rho(density(dense_x, m), cells.mask)
-        acc = accel(dense_x, dense_v, rho, p, m)
+        acc = momentum(dense_x, dense_v, rho, p, m)
         if surface_tension > 0:
             acc[:3] += surface_tension_pass(dense_x, rho, m)
         out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
@@ -1013,6 +964,27 @@ def make_step_fn(
 
     step.resolved = resolved
     return step
+
+
+def _cfl_dt(a2max, v2max, params, cfl, dt_min, dt_max):
+    """The CFL controller's next dt (0-d, on the device of its inputs)
+    from the step's largest ``|a|^2`` of the mobile particles and
+    ``|v|^2`` of the new state: :func:`make_adaptive_step_fn`'s rule,
+    device arithmetic only."""
+    h = float(params.h)
+    amax = torch.sqrt(torch.clamp(a2max, min=1e-30))
+    vmax = torch.sqrt(torch.clamp(v2max, min=1e-30))
+    dt_f = torch.sqrt(torch.div(h, amax))
+    dt_cv = torch.div(h, float(params.c0) + vmax)
+    return torch.clamp(cfl * torch.minimum(dt_f, dt_cv), min=dt_min,
+                       max=dt_max)
+
+
+def state_device(state):
+    """The device of a state's positions: of the first shard for a
+    decomposed state, whose fields hold one tensor a shard."""
+    x = state.x
+    return (x[0] if isinstance(x, (tuple, list)) else x).device
 
 
 def make_adaptive_step_fn(grid, params, cfl=0.25, dt_min=0.0, dt_max=None,
@@ -1049,23 +1021,15 @@ def make_adaptive_step_fn(grid, params, cfl=0.25, dt_min=0.0, dt_max=None,
         carrying ``resolved`` as :func:`make_step_fn`'s step does.
     """
     base = make_step_fn(grid, params, _traced_dt=True, **kwargs)
-    h = float(params.h)
-    c0 = float(params.c0)
     if dt_max is None:
         dt_max = float(params.dt)
 
     @torch.inference_mode()
     def step(state, dt):
         new_state, aux, a2max = base(state, dt)
-        amax = torch.sqrt(torch.clamp(a2max, min=1e-30))
         v2max = torch.amax(torch.sum(new_state.v * new_state.v, dim=-1))
-        vmax = torch.sqrt(torch.clamp(v2max, min=1e-30))
-        dt_f = torch.sqrt(torch.div(h, amax))
-        dt_cv = torch.div(h, c0 + vmax)
-        dt_next = torch.clamp(
-            cfl * torch.minimum(dt_f, dt_cv), min=dt_min, max=dt_max
-        )
-        return new_state, aux, dt_next
+        return new_state, aux, _cfl_dt(a2max, v2max, params, cfl, dt_min,
+                                       dt_max)
 
     step.resolved = base.resolved
     return step
@@ -1094,8 +1058,9 @@ def run_adaptive(step_fn, state, dt0, n_steps):
     ``i + 1``'s.  Nothing in the loop reads a device value on the host.
 
     Args:
-        step_fn: from :func:`make_adaptive_step_fn`.
-        state: initial :class:`SPHState`.
+        step_fn: from :func:`make_adaptive_step_fn` (or
+            :func:`tpgsd_torch.sph.make_adaptive_distributed_step_fn`).
+        state: initial :class:`SPHState` (or ``DistState``).
         dt0: the first step's dt (e.g. ``params.dt``; a float or a 0-d
             tensor, such as a ``dt_next`` kept from an earlier rollout).
         n_steps: number of steps.
@@ -1105,7 +1070,7 @@ def run_adaptive(step_fn, state, dt0, n_steps):
         dt and the simulated time, the float32 sum of the dts taken
         (both 0-d device tensors).
     """
-    dt, t = initial_dt(dt0, state.x.device)
+    dt, t = initial_dt(dt0, state_device(state))
     for _ in range(int(n_steps)):
         state, _aux, dt_next = step_fn(state, dt)
         t = t + dt
