@@ -73,6 +73,21 @@ the fixed one at ``dt == params.dt`` and a 200-step rollout with no host
 sync; ``resume_distributed`` of a 2-frame file onto 1 and 2 shards; with
 one visible GPU the shards share ``cuda:0`` and the script says that
 cross-device copies were not exercised.
+Phase 11 drives the 2-D and 3-D block decompositions
+(``make_distributed2d_step_fn`` on a (2, 2) mesh,
+``make_distributed3d_step_fn`` on (2, 2, 2), every shard on ``cuda:0``):
+the 1M dam break at ``n_side=88`` (84 x 42 x 42 cells), spill K = 32 and
+single tier K = 128, both modes, 3 steps against the global kernel step
+and the first against the plain block step, the launches of a step and
+of a step with the options; the degenerate (2, 1) mesh against the slab
+step and (2, 2, 1) against (2, 2); the 110,592-particle cube with the
+options, N(0, 10^2) velocities and a particle moved across the blocks'
+corner, 5 steps each against the plain block step, every face crossed;
+the periodic 1M still box through the rings; the adaptive forms
+bit-identical to the fixed ones and a 200-step rollout with no host
+sync; a 2-frame file resumed onto (2, 2), (1, 1) and (2, 2, 2); and the
+ms/step of both forms beside the global and the 2-shard slab step, with
+a profile of the 3-D step.
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -80,7 +95,9 @@ imports nothing of JAX or of the JAX package ``tpgsd``.
 The second-to-last line of standard output is a JSON object with one
 entry per kernel role (``slab_launches``: its launches in the 4 silent
 steps a mode of the 1e8 cycle; ``decomp_launches``: in one decomposed
-1M step on 2 shards); the last line is the run's result:
+1M step on 2 shards; ``decomp2d_launches`` / ``decomp3d_launches``: in
+one 1M step of the (2, 2) / (2, 2, 2) block form); the last line is the
+run's result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -106,7 +123,13 @@ from tpgsd_torch.io_runtime import (
     SlabDumpChannel,
     scan_simulate_adaptive,
 )
-from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm, make_mesh
+from tpgsd_torch.parallel import (
+    ShardedFrameWriter,
+    SingleComm,
+    make_mesh,
+    make_mesh2d,
+    make_mesh3d,
+)
 from tpgsd_torch.sph import (
     CubicSpline,
     WendlandC2,
@@ -114,16 +137,24 @@ from tpgsd_torch.sph import (
     collect_state,
     dam_break,
     distribute_state,
+    distribute_state_2d,
+    distribute_state_3d,
     energy_rate,
     init_density,
+    make_adaptive_distributed2d_step_fn,
+    make_adaptive_distributed3d_step_fn,
     make_adaptive_distributed_step_fn,
     make_adaptive_step_fn,
+    make_distributed2d_step_fn,
+    make_distributed3d_step_fn,
     make_distributed_step_fn,
     make_slab_step_fn,
     make_step_fn,
     ops,
     resume,
     resume_distributed,
+    resume_distributed2d,
+    resume_distributed3d,
     run_adaptive,
     slab_init_density,
     still_box,
@@ -3085,6 +3116,586 @@ def phase_decomposition(dev, card):
     return per_role, launches, ms
 
 
+# --------------------------------------------------------------------------
+# phase 11: the 2-D and 3-D block decompositions
+# --------------------------------------------------------------------------
+
+#: the 1M dam break whose 84 x 42 x 42 cells divide by the (2, 2) and (2,
+#: 2, 2) meshes, the reference benchmark's fits at 4 and 8 devices
+#: (benchmarks/benchmark_sph.py:160-178); phase 9 steps it on 12 slabs
+BLOCK_1M = dict(n_side=SLAB_1M[0], capacity="auto", capacity_headroom=1.15)
+#: the cube of the options case: every block populated
+BLOCK_CUBE = {"n_side": 48, "box": (1.0, 1.0, 1.0), "fill": (1.0, 1.0, 1.0)}
+BLOCK_CUBE_N, BLOCK_CUBE_DIMS = 110592, (18, 18, 18)
+#: the reference's degenerate-mesh tolerances
+#: (tests/test_distributed3d.py:200-265)
+DEGENERATE_X, DEGENERATE_V = (dict(rtol=1e-5, atol=1e-6),
+                              dict(rtol=1e-4, atol=1e-5))
+
+
+def block_forms():
+    """The two block forms: their mesh shape and entry points."""
+    return {
+        "2d": dict(shape=(2, 2), mesh=make_mesh2d,
+                   distribute=distribute_state_2d,
+                   step=make_distributed2d_step_fn,
+                   adaptive=make_adaptive_distributed2d_step_fn,
+                   resume=resume_distributed2d),
+        "3d": dict(shape=(2, 2, 2), mesh=make_mesh3d,
+                   distribute=distribute_state_3d,
+                   step=make_distributed3d_step_fn,
+                   adaptive=make_adaptive_distributed3d_step_fn,
+                   resume=resume_distributed3d),
+    }
+
+
+def block_dam_break(dev):
+    db = dam_break(device=dev, **BLOCK_1M)
+    if (db.n, tuple(db.grid.dims), db.grid.capacity) != (
+            SLAB_1M[1], SLAB_1M[2], K_1M):
+        raise AssertionError("phase 11 dam break: N=%d grid %s K=%d"
+                             % (db.n, db.grid.dims, db.grid.capacity))
+    return db
+
+
+def populations(dist):
+    return [int((p >= 0).sum()) for p in dist.pid]
+
+
+def block_owners(dist, shape, n):
+    """``[len(shape), n]``: each particle's block coordinates."""
+    pid = np.concatenate([p.cpu().numpy() for p in dist.pid])
+    shard = np.repeat(np.arange(len(dist.pid)), dist.pid[0].shape[0])
+    own = np.full(n, -1)
+    own[pid[pid >= 0]] = shard[pid >= 0]
+    return np.stack(np.unravel_index(own, shape))
+
+
+def block_crossings(before, after, shape, n):
+    """``(faces, diagonal)``: the particles that crossed each face of each
+    decomposed axis between two states (``faces[axis][f]``: face ``f |
+    f + 1``, either way), and those whose block changed on every axis."""
+    a, b = block_owners(before, shape, n), block_owners(after, shape, n)
+    faces = [[int((((a[ax] == f) & (b[ax] == f + 1))
+                   | ((a[ax] == f + 1) & (b[ax] == f))).sum())
+              for f in range(shape[ax] - 1)] for ax in range(len(shape))]
+    return faces, int((a != b).all(axis=0).sum())
+
+
+def phase_block_vs_global(dev, card, devices=None):
+    """Phase 11: the 1M dam break (n_side=88) on the (2, 2) and (2, 2, 2)
+    meshes, spill at the auto K = 32 and single tier at K = 128, both
+    modes: 3 block kernel steps from the jittered state against the
+    global kernel step at the reference's decomposition tolerances, the
+    first against the plain block step from the same state, every
+    particle once, overflow 0, the launches of a step (shards x the
+    global step's); then one counted step with the options for the
+    option roles' launches.  With ``devices`` only the 2-D spill
+    summation step, its shards on those devices.  Returns each form's
+    launches a role and path."""
+    db = block_dam_break(dev)
+    launches = {"2d": {}, "3d": {}}
+    forms = block_forms()
+    for form in ("2d", "3d") if devices is None else ("2d",):
+        f = forms[form]
+        shape = f["shape"]
+        n_sh = int(np.prod(shape))
+        mesh = f["mesh"](shape=shape, devices=devices or [dev] * n_sh)
+        where = ", ".join(sorted({str(d) for d in mesh.devices}))
+        for k in (K_1M, K_WIDE) if devices is None else (K_1M,):
+            layout = "wide" if k > 64 else "spill"
+            grid = db.grid._replace(capacity=k)
+            for mode in PATHS_MODES if devices is None else ("summation",):
+                path = ("wide " if layout == "wide" else "") + mode
+                tag = "phase 11 (%s %s 1M %s K=%d %s on %s)" % (
+                    form, shape, layout, k, mode, where)
+                state = slab_state(db, grid, dev, mode)
+                step_g = make_step_fn(grid, db.params, density_mode=mode,
+                                      device=dev)
+                dist, cap = f["distribute"](state, grid, mesh)
+                step_d = f["step"](grid, db.params, mesh, capacity=cap,
+                                   density_mode=mode)
+                step_p = f["step"](grid, db.params, mesh, capacity=cap,
+                                   density_mode=mode, use_kernels=False,
+                                   spill=layout == "spill")
+                if step_d.resolved != step_g.resolved:
+                    raise AssertionError("%s: resolved %r, global %r" % (
+                        tag, step_d.resolved, step_g.resolved))
+                d1, aux, counts = counted_step(step_d, dist)
+                want = decomp_launches(path, n_sh)
+                if counts != want:
+                    raise AssertionError("%s: launches %s, expected %s"
+                                         % (tag, counts, want))
+                launches[form][path] = counts
+                t0 = time.perf_counter()
+                errs = hold_decomp_vs_plain(tag, dist, (d1, aux),
+                                            step_p(dist), mode, db.n)
+                plain_s = time.perf_counter() - t0
+                del step_p
+                sd, sg = d1, state
+                sg, _aux_g = step_g(sg)
+                for _ in range(2):
+                    sd, aux = step_d(sd)
+                    sg, _aux_g = step_g(sg)
+                if dist_overflow(aux) != (0, 0):
+                    raise AssertionError("%s: overflow %s"
+                                         % (tag, dist_overflow(aux)))
+                check_complete(tag, sd, db.n)
+                got = collect_state(sd, db.n)
+                np.testing.assert_allclose(got.x, sg.x.cpu().numpy(),
+                                           **DECOMP_X)
+                np.testing.assert_allclose(got.v, sg.v.cpu().numpy(),
+                                           **DECOMP_V)
+                ex = float(np.abs(got.x - sg.x.cpu().numpy()).max())
+                ev = float(np.abs(got.v - sg.v.cpu().numpy()).max())
+                print("%s: N=%d, %d slots a shard, populations %s; 3 steps: "
+                      "every particle once, overflow 0, against the global "
+                      "kernel step max abs x %.3g (rtol 5e-4, atol 5e-5), v "
+                      "%.3g (rtol 5e-3, atol 5e-3); step 1 against the plain "
+                      "block step (%.1f s): pids equal, %s; launches a step "
+                      "%s [%s]" % (tag, db.n, cap, populations(dist), ex, ev,
+                                   plain_s, held(errs), json.dumps(counts),
+                                   card))
+                if devices is None:
+                    # the option roles' launches in one 1M block step
+                    opt_path = (("wide " if layout == "wide" else "")
+                                + "options " + mode)
+                    step_o = f["step"](grid, db.params, mesh, capacity=cap,
+                                       density_mode=mode, **DECOMP_OPTIONS)
+                    _o, aux_o, counts_o = counted_step(step_o, dist)
+                    want = decomp_launches(opt_path, n_sh)
+                    energy = ({"energy_wide": 1} if layout == "wide"
+                              else {"energy_self": 2, "energy_cross": 2})
+                    for key, v in energy.items():
+                        want[key] = v * n_sh
+                    if counts_o != want or not bool(
+                            torch.cat(aux_o.dudt).any()):
+                        raise AssertionError("%s: options launches %s, "
+                                             "expected %s" % (tag, counts_o,
+                                                              want))
+                    launches[form][opt_path] = counts_o
+                    del step_o, _o, aux_o
+                del state, dist, d1, sd, sg, got
+                torch.cuda.empty_cache()
+    return launches
+
+
+def phase_block_degenerate(dev, card):
+    """Phase 11: the degenerate meshes with kernels, spill and summation,
+    3 steps: the 2-D (2, 1) mesh against the slab step on 2 shards (the
+    1M dam break of phase 10, n_side=86), the 3-D (2, 2, 1) mesh against
+    the 2-D (2, 2) mesh (n_side=88), at the reference's degenerate
+    tolerances."""
+    forms = block_forms()
+    for n_side, (name_a, make_a), (name_b, make_b) in (
+            (N_1M, ("slab, 2 shards", None), ("2-D (2, 1)", ("2d", (2, 1)))),
+            (SLAB_1M[0], ("2-D (2, 2)", ("2d", (2, 2))),
+             ("3-D (2, 2, 1)", ("3d", (2, 2, 1))))):
+        db = dam_break(n_side=n_side, capacity="auto", capacity_headroom=1.15,
+                       device=dev)
+        state = slab_state(db, db.grid, dev, "summation")
+        out, cap = [], None
+        for make in (make_a, make_b):
+            if make is None:
+                mesh = make_mesh(devices=[dev] * 2)
+                dist, cap = distribute_state(state, db.grid, mesh,
+                                             capacity=cap)
+                step = make_distributed_step_fn(db.grid, db.params, mesh,
+                                                capacity=cap)
+            else:
+                f = forms[make[0]]
+                mesh = f["mesh"](shape=make[1],
+                                 devices=[dev] * int(np.prod(make[1])))
+                dist, cap = f["distribute"](state, db.grid, mesh,
+                                            capacity=cap)
+                step = f["step"](db.grid, db.params, mesh, capacity=cap)
+            for _ in range(3):
+                dist, aux = step(dist)
+            if dist_overflow(aux) != (0, 0):
+                raise AssertionError("phase 11 degenerate: overflow")
+            check_complete("phase 11 degenerate", dist, db.n)
+            out.append(collect_state(dist, db.n))
+        np.testing.assert_allclose(out[1].x, out[0].x, **DEGENERATE_X)
+        np.testing.assert_allclose(out[1].v, out[0].v, **DEGENERATE_V)
+        print("phase 11 (degenerate, N=%d): the %s step against the %s step, "
+              "spill summation kernels, 3 steps: max abs x %.3g (rtol 1e-5, "
+              "atol 1e-6), v %.3g (rtol 1e-4, atol 1e-5) [%s]"
+              % (db.n, name_b, name_a, float(np.abs(out[1].x - out[0].x).max()),
+                 float(np.abs(out[1].v - out[0].v).max()), card))
+        del db, state, dist, out
+        torch.cuda.empty_cache()
+
+
+def corner_mover(state, db, shape, speed=10.0):
+    """The state with one particle moved across the blocks' common corner:
+    the particle of block (0, ..) nearest the corner put 0.2 mm from it on
+    each decomposed axis, moving at ``speed`` m/s towards the opposite
+    block on each (1.5 mm a step at the cube's dt; the viscosity of the
+    N(0, 10^2) neighbours slows it by a few m/s in the first step).
+    Returns the state and the particle's pid."""
+    n_dec = len(shape)
+    corner = torch.tensor([db.grid.lo[a] + db.grid.cell_size * db.grid.dims[a]
+                           / 2 for a in range(n_dec)], device=state.x.device)
+    d = (corner - state.x[:, :n_dec]).clamp(min=0.0)
+    inside = (state.x[:, :n_dec] < corner).all(dim=1)
+    pid = int(torch.where(inside, d.sum(dim=1), float("inf")).argmin())
+    x, v = state.x.clone(), state.v.clone()
+    x[pid, :n_dec] = corner - 2e-4
+    v[pid, :n_dec] = speed
+    return state._replace(x=x, v=v), pid
+
+
+def phase_block_options(dev, card):
+    """Phase 11: the cube (n_side=48, every block populated) with ``xsph=
+    0.5, surface_tension=0.05, compute_energy=True`` on the (2, 2) and (2,
+    2, 2) meshes, spill and K = 128, summation: 5 kernel steps from the
+    jittered state (velocities N(0, 10^2), and one particle moved across
+    the blocks' corner), each held against the plain block step from the
+    same state (du/dt included); migrate overflow 0, every face of every
+    decomposed axis crossed, the diagonal (corner) movers of each step
+    counted (at least one, and the moved particle on the opposite block
+    at the end).  Returns the 2-D run's states for the resume."""
+    db = dam_break(capacity="auto", capacity_headroom=1.15, device=dev,
+                   **BLOCK_CUBE)
+    if (db.n, tuple(db.grid.dims)) != (BLOCK_CUBE_N, BLOCK_CUBE_DIMS):
+        raise AssertionError("phase 11 cube: N=%d grid %s"
+                             % (db.n, db.grid.dims))
+    keep = None
+    for form, f in block_forms().items():
+        shape = f["shape"]
+        mesh = f["mesh"](shape=shape, devices=[dev] * int(np.prod(shape)))
+        for k in (min(max(db.grid.capacity, 24), 64), K_WIDE):
+            layout = "wide" if k > 64 else "spill"
+            grid = db.grid._replace(capacity=k)
+            tag = "phase 11 (%s %s, cube %s K=%d with options)" % (
+                form, shape, layout, k)
+            state = slab_state(db, grid, dev, "summation")
+            state = state._replace(v=DECOMP_4_V * state.v)
+            state, mover = corner_mover(state, db, shape)
+            dist0, cap = f["distribute"](state, grid, mesh)
+            kw = dict(capacity=cap, **DECOMP_OPTIONS)
+            step_k = f["step"](grid, db.params, mesh, **kw)
+            step_p = f["step"](grid, db.params, mesh, use_kernels=False,
+                               spill=layout == "spill", **kw)
+            dist, errs, diagonal, states = dist0, {}, [], [dist0]
+            for _ in range(5):
+                got = step_k(dist)
+                e = hold_decomp_vs_plain(tag, dist, got, step_p(dist),
+                                         "summation", db.n, du=True)
+                errs = {key: max(errs.get(key, 0.0), v)
+                        for key, v in e.items()}
+                diagonal.append(block_crossings(dist, got[0], shape,
+                                                db.n)[1])
+                dist, aux = got
+                states.append(dist)
+                if dist_overflow(aux)[1]:
+                    raise AssertionError("%s: migrate overflow" % tag)
+            faces, _ = block_crossings(dist0, dist, shape, db.n)
+            if min(min(fc) for fc in faces) == 0 or sum(diagonal) == 0:
+                raise AssertionError("%s: faces crossed %s, diagonal movers "
+                                     "a step %s" % (tag, faces, diagonal))
+            moved = block_owners(dist, shape, db.n)[:, mover]
+            if not (moved == 1).all():
+                raise AssertionError("%s: the corner mover is on block %s"
+                                     % (tag, moved))
+            check_complete(tag, dist, db.n)
+            print("%s: dam_break(%s), N=%d, grid %s, %d slots a shard, "
+                  "populations %s, velocities N(0, %g^2) and pid %d moved "
+                  "across the corner; 5 steps each held against the plain "
+                  "block step: pids equal, %s; migrate overflow 0; particles "
+                  "that crossed the faces of x, y%s: %s; movers across every "
+                  "decomposed axis in one step, each step: %s [%s]"
+                  % (tag, ", ".join("%s=%s" % kv for kv in BLOCK_CUBE.items()),
+                     db.n, "x".join(map(str, grid.dims)), cap,
+                     populations(dist0), DECOMP_4_V, mover, held(errs),
+                     ", z" if len(shape) == 3 else "", faces, diagonal, card))
+            if form == "2d" and layout == "spill":
+                keep = (db, grid, states)
+            del step_p, step_k
+    return keep
+
+
+def phase_block_periodic(dev, card):
+    """Phase 11: the periodic 1M still box (38^3 cells) on the (2, 2) mesh
+    (x and y through the rings, z through the kernels' ghost halo) and on
+    the (2, 2, 2) mesh (all three through the rings), spill K = 48, both
+    modes, 20 steps: phase 4's density limits, every particle once, the
+    launches of the global periodic step on each shard; one step from
+    seeded N(0, 1) velocities against the plain block step (v, and the
+    change of x and rho), as phase 10's ring: at N(0, 0.1^2) the
+    rounding of the still box's cancelling pressure sums (ghost
+    positions x + L in the kernels, the minimum image in the plain
+    passes) is above 1e-5 of max|v|."""
+    sc = still_box(n_side=N_BOX_1M, device=dev)
+    grid = sc.grid._replace(capacity=48)
+    period = grid.cell_size * torch.tensor(grid.dims, dtype=torch.float32,
+                                           device=dev)
+    for form, f in block_forms().items():
+        shape = f["shape"]
+        n_sh = int(np.prod(shape))
+        mesh = f["mesh"](shape=shape, devices=[dev] * n_sh)
+        for mode in PATHS_MODES:
+            tag = "phase 11 (%s %s periodic still box, spill K=48 %s)" % (
+                form, shape, mode)
+            state = sc.state
+            if mode == "continuity":
+                state = init_density(state, grid, sc.params, periodic=True,
+                                     device=dev)
+            dist, cap = f["distribute"](state, grid, mesh)
+            kw = dict(capacity=cap, periodic=True, density_mode=mode)
+            step = f["step"](grid, sc.params, mesh, **kw)
+            step_p = f["step"](grid, sc.params, mesh, use_kernels=False,
+                               spill=True, **kw)
+            first, aux, counts = counted_step(step, dist)
+            if counts != decomp_launches(mode, n_sh):
+                raise AssertionError("%s: launches %s" % (tag, counts))
+            rng = np.random.default_rng(5)
+            moving = dist._replace(v=tuple(
+                v + torch.where((p >= 0)[:, None], torch.from_numpy(
+                    rng.standard_normal(tuple(v.shape)).astype(
+                        np.float32)).to(dev), 0.0)
+                for v, p in zip(dist.v, dist.pid)))
+            errs = hold_decomp_vs_plain(tag, moving, step(moving),
+                                        step_p(moving), mode, sc.n,
+                                        period=period)
+            del step_p
+            dist = first
+            for _ in range(19):
+                dist, aux = step(dist)
+            if dist_overflow(aux) != (0, 0):
+                raise AssertionError("%s: overflow %s"
+                                     % (tag, dist_overflow(aux)))
+            check_complete(tag, dist, sc.n)
+            rho = torch.tensor(collect_aux(dist, aux, sc.n, sc.params)[0])
+            mean = float(rho.mean())
+            spread = float((rho / mean - 1.0).abs().max())
+            if abs(mean / 1000.0 - 1.0) > 0.02 or spread > 0.01:
+                raise AssertionError("%s: mean density %.4f, largest "
+                                     "deviation %.4f" % (tag, mean, spread))
+            print("%s: N=%d, 20 steps, mean density %.4f, every particle "
+                  "within %.2e of the mean (limit 1e-2), every particle "
+                  "once, launches a step %s; a step with N(0, 1) "
+                  "velocities against the plain block step: pids equal, %s "
+                  "[%s]" % (tag, sc.n, mean, spread, json.dumps(counts),
+                            held(errs), card))
+            del dist, first, moving, aux
+            torch.cuda.empty_cache()
+
+
+def phase_block_adaptive(dev, card):
+    """Phase 11: each form's adaptive step at ``dt == params.dt`` against
+    its fixed step bit for bit (1M, spill, both modes, 2 steps), then a
+    200-step ``run_adaptive`` rollout of the (2, 2, 2) step on the cube
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    db = block_dam_break(dev)
+    forms = block_forms()
+    for form, f in forms.items():
+        shape = f["shape"]
+        mesh = f["mesh"](shape=shape, devices=[dev] * int(np.prod(shape)))
+        for mode in PATHS_MODES:
+            tag = "phase 11 (%s %s adaptive 1M spill %s)" % (form, shape,
+                                                             mode)
+            state = db.state
+            if mode == "continuity":
+                state = init_density(state, db.grid, db.params, device=dev)
+            dist, cap = f["distribute"](state, db.grid, mesh)
+            kw = dict(capacity=cap, density_mode=mode)
+            fixed = f["step"](db.grid, db.params, mesh, **kw)
+            adaptive = f["adaptive"](db.grid, db.params, mesh, **kw)
+            df, da = dist, dist
+            dt = initial_dt(db.params.dt, dev)[0]
+            for _ in range(2):
+                df, _ = fixed(df)
+                da, _, _dt_next = adaptive(da, dt)
+            for name in ("x", "v", "pid", "rho"):
+                a, b = getattr(da, name), getattr(df, name)
+                if a is not None and not all(torch.equal(p, q)
+                                             for p, q in zip(a, b)):
+                    raise AssertionError("%s: %s differs from the fixed "
+                                         "step" % (tag, name))
+            print("%s: 2 steps at dt = params.dt bit-identical to the fixed "
+                  "block step (x, v, pid%s) [%s]"
+                  % (tag, ", rho" if mode == "continuity" else "", card))
+    del db
+    cube = dam_break(capacity="auto", capacity_headroom=1.15, device=dev,
+                     **BLOCK_CUBE)
+    f = forms["3d"]
+    mesh = f["mesh"](shape=f["shape"], devices=[dev] * 8)
+    dist, cap = f["distribute"](cube.state, cube.grid, mesh)
+    step = f["adaptive"](cube.grid, cube.params, mesh, capacity=cap)
+    step(dist, initial_dt(cube.params.dt, dev)[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dt, t = run_adaptive(step, dist, cube.params.dt, N_ROLLOUT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (0.0 < float(dt) <= float(np.float32(cube.params.dt))
+            and float(t) > 0.0):
+        raise AssertionError("phase 11 rollout: dt %r, t %r" % (float(dt),
+                                                                float(t)))
+    check_complete("phase 11 rollout", out, cube.n)
+    if not all(bool(torch.isfinite(x).all()) for x in out.x):
+        raise AssertionError("phase 11 rollout: non-finite positions")
+    print("phase 11 (3d (2, 2, 2) adaptive rollout): %d adaptive block steps "
+          "(the cube, N=%d, spill summation) under sync debug mode "
+          "\"error\": 0 host syncs, %.4f ms/step (host clock), t = %.6g s, "
+          "dt_next = %.6g [%s]" % (N_ROLLOUT, cube.n, 1e3 * wall / N_ROLLOUT,
+                                   float(t), float(dt), card))
+
+
+def phase_block_resume(dev, card, kept):
+    """Phase 11: 2 frames of the 2-D options run of the cube (its last two
+    states) written by the port's writer, resumed with
+    ``resume_distributed2d`` onto (2, 2) and (1, 1) and with
+    ``resume_distributed3d`` onto (2, 2, 2): each state the last frame's,
+    one step each (held against each other at the decomposition
+    tolerances), a frame appended, ``pypgsd.verify(deep=True)``."""
+    db, grid, states = kept
+    tag = "phase 11 (resume)"
+    forms = block_forms()
+    fd, path = tempfile.mkstemp(suffix=".gsd")
+    os.close(fd)
+    try:
+        writer = ShardedFrameWriter(path, application="tpgsd_torch.chip_smoke",
+                                    comm=SingleComm())
+        for i, st in enumerate(states[-2:]):
+            got = collect_state(st, db.n)
+            writer.write_frame({"particles/position": got.x,
+                                "particles/velocity": got.v}, step=i)
+        writer.close()
+        after = {}
+        for form, shape in (("2d", (2, 2)), ("2d", (1, 1)),
+                            ("3d", (2, 2, 2))):
+            f = forms[form]
+            mesh = f["mesh"](shape=shape,
+                             devices=[dev] * int(np.prod(shape)))
+            t0 = time.perf_counter()
+            res, rcap, last, w = f["resume"](path, grid, mesh)
+            resume_s = time.perf_counter() - t0
+            back = collect_state(res, db.n)
+            if last != 1 or not (np.array_equal(back.x, got.x)
+                                 and np.array_equal(back.v, got.v)):
+                raise AssertionError("%s: the state resumed onto %s is not "
+                                     "the last frame" % (tag, shape))
+            step = f["step"](grid, db.params, mesh, capacity=rcap)
+            res, aux = step(res)
+            if dist_overflow(aux) != (0, 0):
+                raise AssertionError("%s: overflow" % tag)
+            after[shape] = collect_state(res, db.n)
+            if shape == (2, 2, 2):
+                w.write_frame({"particles/position": after[shape].x,
+                               "particles/velocity": after[shape].v}, step=2)
+            w.close()
+            print("%s: the 2-frame file resumed onto %s %s (%d slots a "
+                  "shard) in %.3f s (host clock), state equal to the last "
+                  "frame, one step taken" % (tag, form, shape, rcap,
+                                             resume_s))
+        ref = after[(1, 1)]
+        for shape in ((2, 2), (2, 2, 2)):
+            np.testing.assert_allclose(after[shape].x, ref.x, **DECOMP_X)
+            np.testing.assert_allclose(after[shape].v, ref.v, **DECOMP_V)
+        report = tpgsd_torch.pypgsd.verify(path, deep=True)
+        with tpgsd_torch.hoomd.open(path, mode="r") as traj:
+            steps = [int(fr.configuration.step) for fr in traj]
+            last_x = traj[-1].particles.position
+        if (not report["ok"] or steps != [0, 1, 2]
+                or not np.array_equal(last_x, after[(2, 2, 2)].x)):
+            raise AssertionError("%s: file %s, steps %s" % (tag, report,
+                                                            steps))
+        print("%s: the (2, 2) and (2, 2, 2) steps against the (1, 1) step: "
+              "max abs x %.3g, %.3g; frame appended, pypgsd.verify(deep=True) "
+              "ok, steps %s [%s]"
+              % (tag, float(np.abs(after[(2, 2)].x - ref.x).max()),
+                 float(np.abs(after[(2, 2, 2)].x - ref.x).max()), steps,
+                 card))
+    finally:
+        os.remove(path)
+
+
+def phase_block_times(dev, card):
+    """Phase 11: ms/step (CUDA events over 20 steps after 2) of the (2, 2)
+    and (2, 2, 2) block steps, the global step and the slab step on 2
+    shards, on the same 1M jittered state, for each layout and mode; all
+    shards on one device, so the ratios measure the decompositions'
+    overhead, not scaling.  Then a profile of the 3-D spill summation
+    step.  Returns ``{path: {step: ms}}``."""
+    db = block_dam_break(dev)
+    forms = block_forms()
+    ms = {}
+    for k in (K_1M, K_WIDE):
+        layout = "wide" if k > 64 else "spill"
+        grid = db.grid._replace(capacity=k)
+        for mode in PATHS_MODES:
+            path = ("wide " if layout == "wide" else "") + mode
+            state = slab_state(db, grid, dev, mode)
+            row = {"global": step_ms(make_step_fn(grid, db.params,
+                                                  density_mode=mode,
+                                                  device=dev), state, 20, 2)}
+            mesh = make_mesh(devices=[dev] * 2)
+            dist, cap = distribute_state(state, grid, mesh)
+            row["slab, 2 shards"] = step_ms(make_distributed_step_fn(
+                grid, db.params, mesh, capacity=cap, density_mode=mode),
+                dist, 20, 2)
+            for form, f in forms.items():
+                shape = f["shape"]
+                mesh = f["mesh"](shape=shape,
+                                 devices=[dev] * int(np.prod(shape)))
+                dist, cap = f["distribute"](state, grid, mesh)
+                step = f["step"](grid, db.params, mesh, capacity=cap,
+                                 density_mode=mode)
+                row["%s %s" % (form, shape)] = step_ms(step, dist, 20, 2)
+                if form == "3d" and path == "summation":
+                    box = [dist]
+
+                    def run():
+                        box[0], _aux = step(box[0])
+
+                    profile_run(run, db.n, 10, 2, "phase 11",
+                                "1M 3-D (2, 2, 2) block spill summation, 8 "
+                                "shards on one device", card)
+                    del box
+            ms[path] = row
+            print("phase 11 (1M %s, N=%d): %s ms/step (CUDA events over 20 "
+                  "steps; every shard on one device, so this is the "
+                  "decompositions' overhead, not scaling) [%s]"
+                  % (path, db.n, ", ".join("%s %.4f" % kv
+                                           for kv in row.items()), card))
+            del state, dist
+            torch.cuda.empty_cache()
+    return ms
+
+
+def phase_blocks(dev, card):
+    """Phase 11: the 2-D and 3-D block decompositions on the card; returns
+    each form's launches a role in one 1M step, and the ms/step rows."""
+    launches = phase_block_vs_global(dev, card)
+    count = torch.cuda.device_count()
+    if count > 1:
+        phase_block_vs_global(dev, card, devices=[
+            torch.device("cuda", i % count) for i in range(4)])
+    else:
+        print("phase 11: one visible CUDA device: the blocks share cuda:0, "
+              "so cross-device copies were not exercised on this machine")
+    phase_block_degenerate(dev, card)
+    kept = phase_block_options(dev, card)
+    phase_block_periodic(dev, card)
+    phase_block_adaptive(dev, card)
+    phase_block_resume(dev, card, kept)
+    del kept
+    ms = phase_block_times(dev, card)
+    per_role = {}
+    for form, paths in launches.items():
+        roles = per_role.setdefault(form, {})
+        for counts in paths.values():
+            for key, v in counts.items():
+                roles[key] = max(roles.get(key, 0), v)
+    return per_role, ms
+
+
 def check_no_reference_modules():
     """The run must not have loaded JAX or the JAX package."""
     loaded = sorted(
@@ -3169,6 +3780,9 @@ def main():
               "overhead, not scaling) [%s]"
               % (path, DECOMP_SHARDS, ms_d, ms_g, ms_d / ms_g, card))
     print("phase 10 ran %.1f s [%s]" % (time.perf_counter() - t10, card))
+    t11 = time.perf_counter()
+    block_counts, _block_ms = phase_blocks(dev, card)
+    print("phase 11 ran %.1f s [%s]" % (time.perf_counter() - t11, card))
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"
@@ -3185,6 +3799,9 @@ def main():
             "slab_launches": slab_counts.get(key, 0),
             # and in one decomposed 1M step (2 shards)
             "decomp_launches": decomp_counts.get(key, 0),
+            # and in one 1M step of the (2, 2) and (2, 2, 2) block forms
+            "decomp2d_launches": block_counts["2d"].get(key, 0),
+            "decomp3d_launches": block_counts["3d"].get(key, 0),
             "max_abs_err": errs[key]["abs"],
             "max_scaled_err": errs[key]["scaled"],
             "ms": times[key]["ms"],

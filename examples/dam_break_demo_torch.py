@@ -15,17 +15,22 @@ VTK point clouds.
     python examples/dam_break_demo_torch.py --scenario taylor_green --steps 300
     python examples/dam_break_demo_torch.py --device cpu --n-side 6 --steps 20
     python examples/dam_break_demo_torch.py --decomp slab --shards 2
+    python examples/dam_break_demo_torch.py --decomp 3d --shards 8
 
 ``--decomp slab`` steps the slab domain decomposition
-(``tpgsd_torch.sph.make_distributed_step_fn``) with ``--shards`` shards,
-all placed on ``--device`` (on a one-GPU machine the shards share
-``cuda:0``), and frames through ``collect_state`` / ``collect_aux`` as
-the JAX demo does.  The JAX demo's ``--decomp 2d`` / ``3d`` and
-``--sharded`` are not offered: the 2-D and 3-D decompositions are
-ROADMAP queue 1 item 9, and the GSPMD sharding hint has no counterpart.
+(``tpgsd_torch.sph.make_distributed_step_fn``), ``--decomp 2d`` / ``3d``
+the block decompositions (``make_distributed2d_step_fn`` /
+``make_distributed3d_step_fn``) on the block shape the JAX demo fits to
+``--shards`` (the most shards the grid divides, then the most balanced
+shape; a count no shape uses whole raises ``ValueError``).  Every shard
+is placed on ``--device`` (on a one-GPU machine the shards share
+``cuda:0``), and frames go through ``collect_state`` / ``collect_aux``
+as the JAX demo does.  The JAX demo's ``--sharded`` is not offered: the
+GSPMD sharding hint has no counterpart.
 """
 
 import argparse
+import math
 import os
 import sys
 
@@ -74,12 +79,16 @@ def main(argv=None):
     p.add_argument("--spill", action="store_true",
                    help="two-tier spill cell layout (main tier sized at "
                         "1.15x the densest initial cell, clamped to 24-64)")
-    p.add_argument("--decomp", choices=["slab"], default=None,
-                   help="explicit slab domain decomposition with halo "
-                        "exchange and migration (make_distributed_step_fn)")
+    p.add_argument("--decomp", choices=["slab", "2d", "3d"], default=None,
+                   help="explicit domain decomposition with halo exchange "
+                        "and migration: x-slabs (make_distributed_step_fn) "
+                        "or 2-D / 3-D blocks (make_distributed2d_step_fn, "
+                        "make_distributed3d_step_fn)")
     p.add_argument("--shards", type=int, default=2,
-                   help="shards of --decomp slab, all on --device (a "
-                        "divisor of the grid's x cells; default 2)")
+                   help="shards of --decomp, all on --device (slab: a "
+                        "divisor of the grid's x cells; 2d/3d: a count "
+                        "some block shape of the grid uses whole; "
+                        "default 2)")
     args = p.parse_args(argv)
 
     import numpy
@@ -91,17 +100,29 @@ def main(argv=None):
         scan_simulate,
         scan_simulate_adaptive,
     )
-    from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm, make_mesh
+    from tpgsd_torch.parallel import (
+        ShardedFrameWriter,
+        SingleComm,
+        make_mesh,
+        make_mesh2d,
+        make_mesh3d,
+    )
     from tpgsd_torch.sph import (
         collect_aux,
         collect_state,
         dam_break,
         dam_break_2d,
         distribute_state,
+        distribute_state_2d,
+        distribute_state_3d,
         hydrostatic_tank,
         init_density,
+        make_adaptive_distributed2d_step_fn,
+        make_adaptive_distributed3d_step_fn,
         make_adaptive_distributed_step_fn,
         make_adaptive_step_fn,
+        make_distributed2d_step_fn,
+        make_distributed3d_step_fn,
         make_distributed_step_fn,
         make_step_fn,
         taylor_green,
@@ -149,20 +170,41 @@ def main(argv=None):
     )
     if args.adaptive:
         kw["cfl"] = args.cfl
-    decomp = args.decomp == "slab"
-    if decomp:
-        nx, shards = db.grid.dims[0], args.shards
+    decomp = args.decomp is not None
+    shards = args.shards
+    if args.decomp == "slab":
+        nx = db.grid.dims[0]
         if shards < 1 or nx % shards:
             raise ValueError("--shards %d must divide the grid's %d x cells"
                              % (shards, nx))
-        del kw["device"]
         mesh = make_mesh(devices=[dev] * shards)
-        state, cap = distribute_state(state, db.grid, mesh)
+        distribute = distribute_state
         build = (make_adaptive_distributed_step_fn if args.adaptive
                  else make_distributed_step_fn)
+    elif decomp:
+        nd = 2 if args.decomp == "2d" else 3
+        shape = _fit_mesh(db.grid.dims, nd, shards)
+        if shards < 1 or math.prod(shape) != shards:
+            raise ValueError(
+                "--shards %d: no %s block shape of the grid's %s cells uses "
+                "them all (the best is %s)"
+                % (shards, args.decomp, db.grid.dims, shape))
+        make = make_mesh2d if nd == 2 else make_mesh3d
+        mesh = make(shape=shape, devices=[dev] * shards)
+        distribute = distribute_state_2d if nd == 2 else distribute_state_3d
+        if args.adaptive:
+            build = (make_adaptive_distributed2d_step_fn if nd == 2
+                     else make_adaptive_distributed3d_step_fn)
+        else:
+            build = (make_distributed2d_step_fn if nd == 2
+                     else make_distributed3d_step_fn)
+    if decomp:
+        del kw["device"]
+        state, cap = distribute(state, db.grid, mesh)
         step = build(db.grid, db.params, mesh, capacity=cap, **kw)
-        print("decomposed (slab) over %d shards on %s, %d slots a shard"
-              % (shards, dev, cap))
+        print("decomposed (%s) over %d shards on %s, %s%d slots a shard"
+              % (args.decomp, shards, dev, "" if args.decomp == "slab"
+                 else "block shape %s, " % (mesh.shape,), cap))
     else:
         build = make_adaptive_step_fn if args.adaptive else make_step_fn
         step = build(db.grid, db.params, **kw)
@@ -245,6 +287,28 @@ def main(argv=None):
 
         written = convert(args.out, quiet=True)
         print("wrote %d .vtu files" % len(written))
+
+
+def _fit_mesh(dims, nd, n_shards):
+    """The JAX demo's block shape (examples/dam_break_demo.py:165-190):
+    the most of ``n_shards`` used (each factor dividing its grid axis),
+    then the most balanced."""
+    best = [(1,) * nd]
+
+    def key(shape):
+        return (math.prod(shape), -sum(shape))
+
+    def rec(ax, rem, cur):
+        if ax == nd:
+            if key(cur) > key(best[0]):
+                best[0] = tuple(cur)
+            return
+        for d in range(1, rem + 1):
+            if rem % d == 0 and dims[ax] % d == 0:
+                rec(ax + 1, rem // d, cur + [d])
+
+    rec(0, n_shards, [])
+    return best[0]
 
 
 if __name__ == "__main__":

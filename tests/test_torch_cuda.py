@@ -5,7 +5,9 @@ and, for momentum, past them up to K = 1024 with ranges staged in pieces,
 the wide single-tier roles at K = 96, 128 and 256 with prefix and
 arbitrary masks, the ghost-halo route against the wrapped-table route),
 the slab step (kernel against plain, silent steps without a host sync,
-a frame streamed through the side stream and the ring),
+a frame streamed through the side stream and the ring), the slab, 2-D
+and 3-D block decompositions (kernel against plain, an adaptive rollout
+without a host sync),
 the launch counts,
 the operand checks, and the failed-build rule.  Every test here needs an NVIDIA GPU and skips without one; the
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -1331,6 +1333,124 @@ def test_decomposed_adaptive_rollout_makes_no_host_sync(cuda):
                                                     "summation")
     step = make_adaptive_distributed_step_fn(db.grid, db.params, mesh,
                                              capacity=cap)
+    step(dist, torch.tensor(db.params.dt, device=cuda))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dt, t = run_adaptive(step, dist, db.params.dt, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert 0.0 < float(dt) <= float(numpy.float32(db.params.dt))
+    assert float(t) > 0.0
+    got = collect_state(out, db.n)
+    assert numpy.isfinite(got.x).all()
+
+
+def _block_pair(dev, form, layout, density_mode, **kw):
+    """The 4,096-particle cube (6 x 6 x 6 cells, every block populated) on
+    the (2, 2) or (2, 2, 2) block mesh of ``dev``: the "auto" block kernel
+    step, the plain block step on its layout, and the state with seeded
+    N(0, 1) velocities."""
+    from tpgsd_torch.parallel import make_mesh2d, make_mesh3d
+    from tpgsd_torch.sph import (
+        distribute_state_2d,
+        distribute_state_3d,
+        make_distributed2d_step_fn,
+        make_distributed3d_step_fn,
+    )
+
+    db = dam_break(n_side=16, box=(1.0, 1.0, 1.0), fill=(1.0, 1.0, 1.0),
+                   capacity=16 if layout == "spill" else 96, device=dev)
+    assert db.grid.dims == (6, 6, 6), db.grid.dims
+    rng = numpy.random.default_rng(11)
+    v = torch.from_numpy(
+        rng.standard_normal(tuple(db.state.v.shape)).astype(numpy.float32))
+    state = db.state._replace(v=v.to(dev))
+    if density_mode == "continuity":
+        state = init_density(state, db.grid, db.params, device=dev)
+    if form == "2d":
+        mesh = make_mesh2d(shape=(2, 2), devices=[dev] * 4)
+        dist, cap = distribute_state_2d(state, db.grid, mesh)
+        make = make_distributed2d_step_fn
+    else:
+        mesh = make_mesh3d(shape=(2, 2, 2), devices=[dev] * 8)
+        dist, cap = distribute_state_3d(state, db.grid, mesh)
+        make = make_distributed3d_step_fn
+    step_k = make(db.grid, db.params, mesh, capacity=cap,
+                  density_mode=density_mode, **kw)
+    step_p = make(db.grid, db.params, mesh, capacity=cap,
+                  density_mode=density_mode, use_kernels=False,
+                  spill=layout == "spill", **kw)
+    assert step_k.resolved == {"use_kernels": True,
+                               "spill": layout == "spill",
+                               "density_mode": density_mode}
+    return db, mesh, dist, cap, step_k, step_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density_mode", ["summation", "continuity"])
+@pytest.mark.parametrize("layout", ["spill", "wide"])
+@pytest.mark.parametrize("form", ["2d", "3d"])
+def test_block_kernel_step_matches_plain(cuda, form, layout, density_mode):
+    """Three 2-D or 3-D block kernel steps on one card, each against the
+    plain block step from the same state, at the tolerances of
+    test_decomposed_kernel_step_matches_plain (the step's change of v
+    included); the launches of a step are the shards times a global
+    step's."""
+    db, mesh, dist, _cap, step_k, step_p = _block_pair(cuda, form, layout,
+                                                       density_mode)
+    for _ in range(3):
+        ops.reset_launch_counts()
+        sk, ak = step_k(dist)
+        launched = _launched()
+        sp, ap = step_p(dist)
+        for a, b in zip(sk.pid, sp.pid):
+            assert torch.equal(a, b)
+        live = torch.cat([p >= 0 for p in sk.pid]).cpu().numpy()
+        numpy.testing.assert_allclose(torch.cat(sk.x).cpu().numpy(),
+                                      torch.cat(sp.x).cpu().numpy(),
+                                      rtol=1e-5, atol=1e-6)
+        if density_mode == "summation":
+            _scaled_close(torch.cat(ak.rho), torch.cat(ap.rho), live, 1e-5,
+                          1e-6)
+        else:
+            numpy.testing.assert_allclose(torch.cat(sk.rho).cpu().numpy(),
+                                          torch.cat(sp.rho).cpu().numpy(),
+                                          rtol=1e-4, atol=1e-2)
+        _scaled_close(torch.cat(sk.v), torch.cat(sp.v), live, 1e-4, 1e-5)
+        v0, vk, vp = (_by_pid(st, "v", db.n) for st in (dist, sk, sp))
+        dv = vp - v0
+        tol = 1e-5 * dv.abs().max() + 1e-4 * dv.abs() + 2.0 ** -22 * vp.abs()
+        assert bool(((vk - vp).abs() <= tol).all()), float(
+            ((vk - vp).abs() / dv.abs().max()).max())
+        dist = sk
+    n = mesh.size
+    family = "accel_drho" if density_mode == "continuity" else "accel"
+    want = ({family + "_self": 2 * n, family + "_cross": 2 * n}
+            if layout == "spill" else {family + "_wide": n})
+    if density_mode == "summation":
+        want.update({"density_self": 2 * n, "density_cross": 2 * n}
+                    if layout == "spill" else {"density_wide": n})
+    assert launched == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["2d", "3d"])
+def test_block_adaptive_rollout_makes_no_host_sync(cuda, form):
+    """A 10-step adaptive rollout of the 2-D or 3-D block step on one card
+    under ``set_sync_debug_mode("error")``."""
+    from tpgsd_torch.sph import (
+        collect_state,
+        make_adaptive_distributed2d_step_fn,
+        make_adaptive_distributed3d_step_fn,
+        run_adaptive,
+    )
+
+    db, mesh, dist, cap, _k, _p = _block_pair(cuda, form, "spill",
+                                              "summation")
+    make = (make_adaptive_distributed2d_step_fn if form == "2d"
+            else make_adaptive_distributed3d_step_fn)
+    step = make(db.grid, db.params, mesh, capacity=cap)
     step(dist, torch.tensor(db.params.dt, device=cuda))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

@@ -57,16 +57,37 @@ def test_demo_slab_decomposition(tmp_path, capsys, flags):
     """``--decomp slab``: the shards on the CPU, frames gathered by pid
     through collect_state / collect_aux; the same trajectory as the
     global step's within the reference's decomposition tolerances."""
+    _hold_decomposed_demo(tmp_path, capsys, flags, "slab", 2,
+                          "decomposed (slab) over 2 shards on cpu")
+
+
+@pytest.mark.parametrize("flags", [[], ["--adaptive", "--density-mode",
+                                          "continuity"]],
+                         ids=["fixed", "adaptive_continuity"])
+@pytest.mark.parametrize("decomp,shards,shape", [("2d", 4, (2, 2)),
+                                                 ("3d", 8, (2, 2, 2))])
+def test_demo_block_decomposition(tmp_path, capsys, flags, decomp, shards,
+                                  shape):
+    """``--decomp 2d`` / ``3d``: the block shape the JAX demo fits to the
+    4 x 2 x 2 cells, frames gathered by pid; the global step's trajectory
+    within the reference's decomposition tolerances."""
+    _hold_decomposed_demo(
+        tmp_path, capsys, flags, decomp, shards,
+        "decomposed (%s) over %d shards on cpu, block shape %s"
+        % (decomp, shards, shape))
+
+
+def _hold_decomposed_demo(tmp_path, capsys, flags, decomp_kind, shards,
+                          message):
     frames = {}
-    for decomp in (["--decomp", "slab", "--shards", "2"], []):
+    for decomp in (["--decomp", decomp_kind, "--shards", str(shards)], []):
         out = str(tmp_path / ("demo%d.gsd" % len(decomp)))
         dam_break_demo_torch.main(
             ["--device", "cpu", "--n-side", "5", "--steps", "4", "--every",
              "2", "--out", out] + decomp + flags
         )
         printed = capsys.readouterr().out
-        assert ("decomposed (slab) over 2 shards on cpu" in printed) == bool(
-            decomp)
+        assert (message in printed) == bool(decomp)
         assert "dumped 2 frames" in printed
         with tpgsd_torch.hoomd.open(out, mode="r") as traj:
             assert [int(f.configuration.step) for f in traj] == [0, 2]
@@ -90,6 +111,17 @@ def test_demo_slab_shards_must_divide_the_x_cells(tmp_path):
         dam_break_demo_torch.main(
             ["--device", "cpu", "--n-side", "5", "--steps", "1", "--out",
              str(tmp_path / "demo.gsd"), "--decomp", "slab", "--shards",
+             str(shards)])
+
+
+@pytest.mark.parametrize("decomp,shards", [("2d", 3), ("3d", 3)])
+def test_demo_block_shards_must_fit_the_grid(tmp_path, decomp, shards):
+    """A ``--shards`` count that no block shape of the 4 x 2 x 2 cells uses
+    whole raises rather than running fewer shards."""
+    with pytest.raises(ValueError, match="no %s block shape" % decomp):
+        dam_break_demo_torch.main(
+            ["--device", "cpu", "--n-side", "5", "--steps", "1", "--out",
+             str(tmp_path / "demo.gsd"), "--decomp", decomp, "--shards",
              str(shards)])
 
 

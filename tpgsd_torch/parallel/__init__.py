@@ -11,8 +11,10 @@ pgsd/pgsd/pgsd.c MPI_File_* + MPI_Allgather offset protocol):
 
 Every writer and reader takes its communicator explicitly (``comm=``).
 
-:func:`make_mesh` builds the 1-D device mesh of the decomposed SPH step
-(:mod:`tpgsd_torch.sph.distributed`), driven from one process.
+:func:`make_mesh` builds the 1-D device mesh of the slab-decomposed SPH
+step (:mod:`tpgsd_torch.sph.distributed`), :func:`make_mesh2d` and
+:func:`make_mesh3d` the block meshes of the 2-D and 3-D decompositions;
+every shard is driven from one process.
 """
 
 from .shard_io import (  # noqa: F401
@@ -24,5 +26,5 @@ from .shard_io import (  # noqa: F401
     write_sharded_chunk,
 )
 from .comm import SingleComm  # noqa: F401
-from .mesh import Mesh, make_mesh  # noqa: F401
+from .mesh import Mesh, make_mesh, make_mesh2d, make_mesh3d  # noqa: F401
 from .fs import direct_write_policy, filesystem_kind  # noqa: F401

@@ -27,6 +27,12 @@ partitioned by :func:`distribute_state` over the shards of a
 exchange and particle migration; several shards may share one GPU.
 :func:`collect_state` / :func:`collect_aux` gather it back to the host
 and :func:`resume_distributed` re-slabs a trajectory's last frame.
+The 2-D and 3-D block decompositions (:func:`make_distributed2d_step_fn`,
+:func:`make_distributed3d_step_fn`, their adaptive forms,
+:func:`distribute_state_2d` / :func:`distribute_state_3d`,
+:func:`resume_distributed2d` / :func:`resume_distributed3d`) step the
+same :class:`DistState` over a :func:`tpgsd_torch.parallel.make_mesh2d`
+or :func:`~tpgsd_torch.parallel.make_mesh3d` mesh.
 """
 
 from .cells import (
@@ -41,7 +47,12 @@ from .cells import (
     scatter_to_cells_soa,
 )
 from .bigstep import make_slab_step_fn, slab_init_density
-from .checkpoint import resume, resume_distributed
+from .checkpoint import (
+    resume,
+    resume_distributed,
+    resume_distributed2d,
+    resume_distributed3d,
+)
 from .dam_break import DamBreak, dam_break
 from .distributed import (
     CollectedState,
@@ -52,6 +63,16 @@ from .distributed import (
     distribute_state,
     make_adaptive_distributed_step_fn,
     make_distributed_step_fn,
+)
+from .distributed2d import (
+    distribute_state_2d,
+    make_adaptive_distributed2d_step_fn,
+    make_distributed2d_step_fn,
+)
+from .distributed3d import (
+    distribute_state_3d,
+    make_adaptive_distributed3d_step_fn,
+    make_distributed3d_step_fn,
 )
 from .kernels import CubicSpline, WendlandC2
 from .scenarios import (
@@ -94,12 +115,18 @@ __all__ = [
     "dam_break_2d",
     "density_and_pressure",
     "distribute_state",
+    "distribute_state_2d",
+    "distribute_state_3d",
     "energy_rate",
     "gather_from_cells",
     "hydrostatic_tank",
     "init_density",
+    "make_adaptive_distributed2d_step_fn",
+    "make_adaptive_distributed3d_step_fn",
     "make_adaptive_distributed_step_fn",
     "make_adaptive_step_fn",
+    "make_distributed2d_step_fn",
+    "make_distributed3d_step_fn",
     "make_distributed_step_fn",
     "make_grid",
     "make_slab_step_fn",
@@ -107,6 +134,8 @@ __all__ = [
     "neighbor_table",
     "resume",
     "resume_distributed",
+    "resume_distributed2d",
+    "resume_distributed3d",
     "run_adaptive",
     "scatter_to_cells",
     "scatter_to_cells_soa",

@@ -9,9 +9,10 @@ pgsd/pgsd/pgsd.c:1630-1639 frame-counter derivation).
 
 :func:`resume` reads the last frame back through the port's
 :class:`~tpgsd_torch.parallel.ShardedTrajectoryReader` onto a device and
-returns the writer positioned to append; :func:`resume_distributed`
-re-slabs the last frame onto a mesh for the slab decomposition.  The 2-D
-and 3-D resumes wait for those decompositions.
+returns the writer positioned to append; :func:`resume_distributed`,
+:func:`resume_distributed2d` and :func:`resume_distributed3d`
+re-partition the last frame onto a mesh for the slab, 2-D and 3-D block
+decompositions.
 """
 
 import numpy
@@ -90,6 +91,37 @@ def resume(name, *, comm, device="cuda", extra_chunks=(),
     return state, step, writer, extras
 
 
+def _last_frame(name, continuity):
+    """``(SPHState of numpy arrays, step)`` of the last frame of
+    ``name``, read whole (``rho`` only in continuity mode)."""
+    from .. import fl
+
+    rho = None
+    with fl.open(name, "r") as f:
+        if f.nframes == 0:
+            raise ValueError(
+                "cannot resume from an empty trajectory: " + str(name))
+        last = f.nframes - 1
+        x = numpy.asarray(f.read_chunk(last, "particles/position"))
+        v = numpy.asarray(f.read_chunk(last, "particles/velocity"))
+        if continuity:
+            _require_density(f, last, name)
+            rho = numpy.asarray(f.read_chunk(last, "particles/density"))
+        if f.chunk_exists(last, "configuration/step"):
+            step = int(f.read_chunk(last, "configuration/step")[0])
+        else:
+            step = last
+    return SPHState(x=x, v=v, rho=rho), step
+
+
+def _resume_onto(name, distribute, application, density_mode):
+    state, step = _last_frame(name, density_mode == "continuity")
+    dist, cap = distribute(state)
+    writer = ShardedFrameWriter(name, mode="a", application=application,
+                                comm=SingleComm())
+    return dist, cap, step, writer
+
+
 def resume_distributed(name, grid, mesh, capacity=None,
                        application="tpgsd.sph", decomp_axis=0,
                        density_mode="summation"):
@@ -113,29 +145,39 @@ def resume_distributed(name, grid, mesh, capacity=None,
         (or ``nframes - 1``) and a :class:`ShardedFrameWriter` opened in
         append mode.
     """
-    from .. import fl
     from .distributed import distribute_state
 
-    continuity = density_mode == "continuity"
-    rho = None
-    with fl.open(name, "r") as f:
-        if f.nframes == 0:
-            raise ValueError(
-                "cannot resume from an empty trajectory: " + str(name))
-        last = f.nframes - 1
-        x = numpy.asarray(f.read_chunk(last, "particles/position"))
-        v = numpy.asarray(f.read_chunk(last, "particles/velocity"))
-        if continuity:
-            _require_density(f, last, name)
-            rho = numpy.asarray(f.read_chunk(last, "particles/density"))
-        if f.chunk_exists(last, "configuration/step"):
-            step = int(f.read_chunk(last, "configuration/step")[0])
-        else:
-            step = last
-    dist, cap = distribute_state(
-        SPHState(x=x, v=v, rho=rho), grid, mesh, capacity=capacity,
-        decomp_axis=decomp_axis,
-    )
-    writer = ShardedFrameWriter(name, mode="a", application=application,
-                                comm=SingleComm())
-    return dist, cap, step, writer
+    return _resume_onto(name, lambda st: distribute_state(
+        st, grid, mesh, capacity=capacity, decomp_axis=decomp_axis),
+        application, density_mode)
+
+
+def resume_distributed2d(name, grid, mesh, capacity=None,
+                         application="tpgsd.sph", density_mode="summation"):
+    """Resume the 2-D block-decomposed loop from the last complete frame
+    of ``name``: as :func:`resume_distributed`, block ownership re-derived
+    for the ``(px, py)`` ``mesh``
+    (:func:`~tpgsd_torch.sph.distributed2d.distribute_state_2d`), whose
+    shape may differ from the writing run's (a file the slab or 3-D form
+    wrote too: the file records the global state only).
+
+    Returns:
+        ``(dist_state, capacity, step, writer)`` as
+        :func:`resume_distributed`.
+    """
+    from .distributed2d import distribute_state_2d
+
+    return _resume_onto(name, lambda st: distribute_state_2d(
+        st, grid, mesh, capacity=capacity), application, density_mode)
+
+
+def resume_distributed3d(name, grid, mesh, capacity=None,
+                         application="tpgsd.sph", density_mode="summation"):
+    """Resume the 3-D block-decomposed loop from the last complete frame
+    of ``name`` onto a ``(px, py, pz)`` ``mesh``, as
+    :func:`resume_distributed2d`
+    (:func:`~tpgsd_torch.sph.distributed3d.distribute_state_3d`)."""
+    from .distributed3d import distribute_state_3d
+
+    return _resume_onto(name, lambda st: distribute_state_3d(
+        st, grid, mesh, capacity=capacity), application, density_mode)

@@ -335,20 +335,8 @@ def make_distributed_step_fn(
         )
     if decomp_axis != 0:
         raise ValueError("decomp_axis must be 0 or 1, got %r" % (decomp_axis,))
-    if xsph < 0 or surface_tension < 0:
-        raise ValueError(
-            "xsph and surface_tension must be >= 0; got %r and %r"
-            % (xsph, surface_tension)
-        )
-    continuity = density_mode == "continuity"
-    if density_mode not in ("summation", "continuity"):
-        raise ValueError("unknown density_mode: %r" % (density_mode,))
-    if continuity and density_renorm:
-        raise ValueError(
-            "density_renorm corrects the summation-density free-surface "
-            "deficit; continuity mode has no deficit to correct - use "
-            "delta_sph for its noise control instead"
-        )
+    continuity = _check_options(xsph, surface_tension, density_mode,
+                                density_renorm)
 
     devices = tuple(mesh.devices)
     n_sh = len(devices)
@@ -363,9 +351,7 @@ def make_distributed_step_fn(
         )
     if periodic and nx < 3:
         raise ValueError("periodic needs >= 3 cells along x")
-    kinds = {d.type for d in devices}
-    if len(kinds) != 1:
-        raise ValueError("a mesh of one device type; got %s" % sorted(kinds))
+    _check_device_type(devices)
     nxl = nx // n_sh
     nynz = ny * nz
     c = nxl * nynz
@@ -415,36 +401,7 @@ def make_distributed_step_fn(
     gravity = _per_device(devices, lambda d: torch.from_numpy(
         np.asarray(params.gravity, np.float32)).to(d))
     wrapped = _per_device(devices, lambda d: torch.from_numpy(wrap).to(d))
-    n_out = (3 + int(continuity) + 3 * int(xsph > 0)
-             + 2 * int(not continuity) + int(compute_energy))
-
-    def sentinel_of(dev):
-        # dropped and dead particles: zero acc, drho, dvc, p, du; rho0
-        s = torch.zeros(n_out, dtype=torch.float32, device=dev)
-        if not continuity:
-            s[3 + 3 * int(xsph > 0)] = params.rho0
-        return s
-
-    sentinel = _per_device(devices, sentinel_of)
-
-    def check(state):
-        if len(state.x) != n_sh:
-            raise ValueError(
-                "step built for %d shards got a state of %d"
-                % (n_sh, len(state.x))
-            )
-        for d, (x, dev) in enumerate(zip(state.x, devices)):
-            if x.device != dev or tuple(x.shape) != (cap, 3):
-                raise ValueError(
-                    "shard %d: step built for [%d, 3] on %s got %s on %s"
-                    % (d, cap, dev, tuple(x.shape), x.device)
-                )
-        if continuity and state.rho is None:
-            raise ValueError(
-                "density_mode='continuity' needs DistState.rho - seed the "
-                "global state with tpgsd_torch.sph.init_density before "
-                "distribute_state"
-            )
+    sentinel = _sentinels(devices, params, continuity, xsph, compute_energy)
 
     def tiers_of(ext):
         """Per tier ``(x, v, rho or None, live)`` of one shard's extended
@@ -454,7 +411,7 @@ def make_distributed_step_fn(
 
     @torch.inference_mode()
     def step(state, dt=params.dt):
-        check(state)
+        _check_state(state, devices, cap, continuity, "distribute_state")
         xs, vs, pids = state.x, state.v, state.pid
         alive = [p >= 0 for p in pids]
         dts = [dt.to(d, non_blocking=True) if isinstance(dt, torch.Tensor)
@@ -602,50 +559,10 @@ def make_distributed_step_fn(
         return new_state, aux
 
     def integrate(d, out, x, v, pid, alive, rho_in, dt, a2):
-        """The gathered rows ``out`` of shard ``d`` -> ``(x_new, v_new,
-        x_raw, rho, alive, rho_aux, p_aux, dudt)``: the global step's
-        integration (``rho`` the carried density in continuity mode,
-        ``rho_aux``/``p_aux`` the summed ones otherwise); ``x_raw`` keeps
-        the unwrapped x of the periodic seam for the crossing test; with
-        ``_traced_dt`` it appends the mobile particles' largest ``|a|^2``
-        to ``a2``."""
-        acc = out[:, :3] + gravity[d]
-        col = 3
-        if continuity:
-            drho = out[:, 3]
-            col = 4
-        drift_dv = None
-        if xsph > 0:
-            drift_dv = xsph * out[:, col:col + 3]
-            col += 3
-        if continuity:
-            rho_c, _ = _carried_density(rho_in, drho, dt, params)
-            rho = torch.where(alive, rho_c, params.rho0)
-            rho_aux = p_aux = None
-        else:
-            rho = None
-            rho_aux, p_aux = out[:, col], out[:, col + 1]
-            col += 2
-        dudt = out[:, col] if compute_energy else torch.zeros_like(out[:, 0])
-        x_new, v_new, x_raw = _integrate(
-            x, v, acc, dt, params, lo[d], hi[d], drift_dv,
-            wrapped[d] if periodic else None, raw=True,
-        )
-        still = ~alive  # dead slots do not move
-        if n_fixed > 0:
-            # boundary particles: sources that never move or migrate
-            fixed = alive & (pid < n_fixed)
-            still = still | fixed
-            v_new = torch.where(fixed[:, None], 0.0, v_new)
-        x_new = torch.where(still[:, None], x, x_new)
-        x_raw = torch.where(still[:, None], x, x_raw)
-        v_new = torch.where(alive[:, None], v_new, v)
-        if _traced_dt:
-            # the controller's force input: the mobile particles' |a|^2
-            mobile = alive & (pid >= n_fixed) if n_fixed > 0 else alive
-            a2.append(torch.amax(torch.where(
-                mobile, torch.sum(acc * acc, dim=-1), 0.0)))
-        return x_new, v_new, x_raw, rho, alive, rho_aux, p_aux, dudt
+        return _integrate_rows(
+            out, x, v, pid, alive, rho_in, dt, params, gravity[d], lo[d],
+            hi[d], wrapped[d] if periodic else None, continuity, xsph,
+            compute_energy, n_fixed, a2 if _traced_dt else None)
 
     def migrants(d, pid, x_new, v_new, x_raw, rho, alive):
         """Stage 5 of shard ``d``: the particles that left its slab
@@ -681,6 +598,115 @@ def make_distributed_step_fn(
 
     step.resolved = resolved
     return step
+
+
+def _check_options(xsph, surface_tension, density_mode, density_renorm):
+    """The option guards of every decomposition; returns whether the
+    density mode is continuity."""
+    if xsph < 0 or surface_tension < 0:
+        raise ValueError(
+            "xsph and surface_tension must be >= 0; got %r and %r"
+            % (xsph, surface_tension)
+        )
+    continuity = density_mode == "continuity"
+    if density_mode not in ("summation", "continuity"):
+        raise ValueError("unknown density_mode: %r" % (density_mode,))
+    if continuity and density_renorm:
+        raise ValueError(
+            "density_renorm corrects the summation-density free-surface "
+            "deficit; continuity mode has no deficit to correct - use "
+            "delta_sph for its noise control instead"
+        )
+    return continuity
+
+
+def _check_device_type(devices):
+    kinds = {d.type for d in devices}
+    if len(kinds) != 1:
+        raise ValueError("a mesh of one device type; got %s" % sorted(kinds))
+
+
+def _check_state(state, devices, cap, continuity, distribute):
+    """A state for a step built for ``cap`` slots on each of ``devices``
+    (``distribute`` names the function that makes one, for the error)."""
+    if len(state.x) != len(devices):
+        raise ValueError(
+            "step built for %d shards got a state of %d"
+            % (len(devices), len(state.x))
+        )
+    for d, (x, dev) in enumerate(zip(state.x, devices)):
+        if x.device != dev or tuple(x.shape) != (cap, 3):
+            raise ValueError(
+                "shard %d: step built for [%d, 3] on %s got %s on %s"
+                % (d, cap, dev, tuple(x.shape), x.device)
+            )
+    if continuity and state.rho is None:
+        raise ValueError(
+            "density_mode='continuity' needs DistState.rho - seed the "
+            "global state with tpgsd_torch.sph.init_density before "
+            "%s" % distribute
+        )
+
+
+def _sentinels(devices, params, continuity, xsph, compute_energy):
+    """The gathered row of dropped and dead particles, one a shard: zero
+    acc, drho, dvc, p and du; rho0."""
+    n_out = (3 + int(continuity) + 3 * int(xsph > 0)
+             + 2 * int(not continuity) + int(compute_energy))
+
+    def sentinel_of(dev):
+        s = torch.zeros(n_out, dtype=torch.float32, device=dev)
+        if not continuity:
+            s[3 + 3 * int(xsph > 0)] = params.rho0
+        return s
+
+    return _per_device(devices, sentinel_of)
+
+
+def _integrate_rows(out, x, v, pid, alive, rho_in, dt, params, gravity, lo,
+                    hi, wrapped, continuity, xsph, compute_energy, n_fixed,
+                    a2):
+    """One shard's gathered rows ``out`` -> ``(x_new, v_new, x_raw, rho,
+    alive, rho_aux, p_aux, dudt)``: the global step's integration (``rho``
+    the carried density in continuity mode, ``rho_aux``/``p_aux`` the
+    summed ones otherwise), ``x_raw`` the coordinates before the wrap of
+    the ``wrapped`` axes, for the crossing test of a seam.  With a list
+    ``a2`` it appends the mobile particles' largest ``|a|^2``."""
+    acc = out[:, :3] + gravity
+    col = 3
+    if continuity:
+        drho = out[:, 3]
+        col = 4
+    drift_dv = None
+    if xsph > 0:
+        drift_dv = xsph * out[:, col:col + 3]
+        col += 3
+    if continuity:
+        rho_c, _ = _carried_density(rho_in, drho, dt, params)
+        rho = torch.where(alive, rho_c, params.rho0)
+        rho_aux = p_aux = None
+    else:
+        rho = None
+        rho_aux, p_aux = out[:, col], out[:, col + 1]
+        col += 2
+    dudt = out[:, col] if compute_energy else torch.zeros_like(out[:, 0])
+    x_new, v_new, x_raw = _integrate(x, v, acc, dt, params, lo, hi, drift_dv,
+                                     wrapped, raw=True)
+    still = ~alive  # dead slots do not move
+    if n_fixed > 0:
+        # boundary particles: sources that never move or migrate
+        fixed = alive & (pid < n_fixed)
+        still = still | fixed
+        v_new = torch.where(fixed[:, None], 0.0, v_new)
+    x_new = torch.where(still[:, None], x, x_new)
+    x_raw = torch.where(still[:, None], x, x_raw)
+    v_new = torch.where(alive[:, None], v_new, v)
+    if a2 is not None:
+        # the controller's force input: the mobile particles' |a|^2
+        mobile = alive & (pid >= n_fixed) if n_fixed > 0 else alive
+        a2.append(torch.amax(torch.where(
+            mobile, torch.sum(acc * acc, dim=-1), 0.0)))
+    return x_new, v_new, x_raw, rho, alive, rho_aux, p_aux, dudt
 
 
 def _empty_buffers(keep, keep_pid):
@@ -794,8 +820,16 @@ def make_adaptive_distributed_step_fn(grid, params, mesh, cfl=0.25,
         :func:`tpgsd_torch.sph.run_adaptive`.  At ``dt == params.dt`` it
         steps bit for bit as the fixed step.
     """
-    base = make_distributed_step_fn(grid, params, mesh, _traced_dt=True,
-                                    **kwargs)
+    return _adaptive_step(
+        make_distributed_step_fn(grid, params, mesh, _traced_dt=True,
+                                 **kwargs),
+        params, mesh, cfl, dt_min, dt_max)
+
+
+def _adaptive_step(base, params, mesh, cfl, dt_min, dt_max):
+    """The CFL controller around ``base`` (a decomposed step built with
+    ``_traced_dt=True``): the shards' maxima meet on the first shard's
+    device, where ``dt_next`` is made.  Shared by every decomposition."""
     if dt_max is None:
         dt_max = float(params.dt)
     dev0 = mesh.devices[0]
@@ -843,9 +877,6 @@ def distribute_state(state, grid, mesh, capacity=None, decomp_axis=0):
     n_sh = len(devices)
     nxl = grid.dims[decomp_axis] // n_sh
     x = _host(state.x).astype(np.float32, copy=False)
-    v = _host(state.v).astype(np.float32, copy=False)
-    rho = None if state.rho is None else _host(state.rho)
-
     slab_width = nxl * grid.cell_size
     owner = np.clip(
         ((x[:, decomp_axis] - grid.lo[decomp_axis]) // slab_width).astype(
@@ -854,6 +885,20 @@ def distribute_state(state, grid, mesh, capacity=None, decomp_axis=0):
         0,
         n_sh - 1,
     )
+    return _partition(state._replace(x=x), owner, devices, capacity, "slab")
+
+
+def _partition(state, owner, devices, capacity, unit):
+    """Place each particle of ``state`` on the shard ``owner`` names (an
+    ``[N]`` numpy array), in original-index ``pid`` order, the other
+    slots dead; ``capacity`` defaults to the smallest multiple of 8 at
+    least twice the largest shard population -> ``(DistState,
+    capacity)``.  Shared by every decomposition (``unit`` names a shard's
+    region in the error)."""
+    n_sh = len(devices)
+    x = _host(state.x).astype(np.float32, copy=False)
+    v = _host(state.v).astype(np.float32, copy=False)
+    rho = None if state.rho is None else _host(state.rho)
     pops = np.bincount(owner, minlength=n_sh)
     if capacity is None:
         capacity = int(-(-2 * max(int(pops.max()), 1) // 8) * 8)
@@ -866,8 +911,8 @@ def distribute_state(state, grid, mesh, capacity=None, decomp_axis=0):
         sel = np.nonzero(owner == d)[0]
         if len(sel) > capacity:
             raise ValueError(
-                "shard %d slab holds %d particles > capacity %d"
-                % (d, len(sel), capacity)
+                "shard %d %s holds %d particles > capacity %d"
+                % (d, unit, len(sel), capacity)
             )
         xs[d, : len(sel)] = x[sel]
         vs[d, : len(sel)] = v[sel]
