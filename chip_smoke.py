@@ -88,6 +88,21 @@ bit-identical to the fixed ones and a 200-step rollout with no host
 sync; a 2-frame file resumed onto (2, 2), (1, 1) and (2, 2, 2); and the
 ms/step of both forms beside the global and the 2-shard slab step, with
 a profile of the 3-D step.
+Phase 12 runs the decompositions with one OS process per rank
+(``tpgsd_torch.parallel.worker`` processes over ``TorchProcessComm`` and
+Gloo, every process on ``cuda:0``, the kernels built by this process
+first): the slab form on 2 processes (the phase-10 dam break, spill K =
+32 and single tier K = 128), (2, 2) on 4 and (2, 2, 2) on 8 (the
+phase-11 dam break, spill K = 32), both modes, 3 steps each; every
+process's shards held bit for bit to the single-controller step run
+here, overflow 0, every particle once, each role's launches a step
+summed over the processes equal to the single controller's, and both
+timed (host clock, with the host syncs, bytes and exchange time of the
+Gloo staging); the (2, 2) dump cycle through ``ShardedFrameWriter`` and
+``ComposedFrameWriter`` over the processes, each file byte-equal to one
+process's and ``verify(deep=True)``; the controller killed mid-frame
+(the file reopens at 3 frames); and a one-process NCCL group (the
+wiring only: one GPU allows no NCCL point-to-point).
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -96,8 +111,9 @@ The second-to-last line of standard output is a JSON object with one
 entry per kernel role (``slab_launches``: its launches in the 4 silent
 steps a mode of the 1e8 cycle; ``decomp_launches``: in one decomposed
 1M step on 2 shards; ``decomp2d_launches`` / ``decomp3d_launches``: in
-one 1M step of the (2, 2) / (2, 2, 2) block form); the last line is the
-run's result:
+one 1M step of the (2, 2) / (2, 2, 2) block form; ``mp_launches``: in one
+1M step of each form over processes, summed over them); the last line
+is the run's result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -126,9 +142,11 @@ from tpgsd_torch.io_runtime import (
 from tpgsd_torch.parallel import (
     ShardedFrameWriter,
     SingleComm,
+    launch,
     make_mesh,
     make_mesh2d,
     make_mesh3d,
+    worker,
 )
 from tpgsd_torch.sph import (
     CubicSpline,
@@ -3696,6 +3714,242 @@ def phase_blocks(dev, card):
     return per_role, ms
 
 
+# --------------------------------------------------------------------------
+# phase 12: one process per rank (TorchProcessComm over Gloo on cuda:0)
+# --------------------------------------------------------------------------
+
+#: the forms over processes: (form, processes, mesh shape, capacities);
+#: the 1M dam breaks of phases 10 (slab, n_side=86) and 11 (blocks,
+#: n_side=88), one shard a process
+MP_FORMS = (("slab", 2, None, (K_1M, K_WIDE)), ("2d", 4, (2, 2), (K_1M,)),
+            ("3d", 8, (2, 2, 2), (K_1M,)))
+MP_STEPS = 3  # steps of each run, the last held bit for bit
+MP_TIMED = 10  # then the steps timed, over processes and in one process
+MP_TIMEOUT_S = 240  # the deadline of one spawn of workers
+
+
+def mp_runs(form, shape, db, ks, dev, write=None):
+    """The runs of ``form`` on ``db``: each capacity of ``ks`` in both
+    modes, from phase 3's jittered state (continuity seeded with the
+    global summation density)."""
+    base = slab_state(db, db.grid, dev, "summation")
+    x, v = base.x.cpu().numpy(), base.v.cpu().numpy()
+    runs = []
+    for k in ks:
+        grid = db.grid._replace(capacity=k)
+        for mode in PATHS_MODES:
+            rho = None
+            if mode == "continuity":
+                rho = init_density(base, grid, db.params,
+                                   device=dev).rho.cpu().numpy()
+            run = {"kind": "step", "form": form, "shape": shape,
+                   "devices": [str(dev)], "grid": grid, "params": db.params,
+                   "state": (x, v, rho), "steps": MP_STEPS,
+                   "hold": [MP_STEPS - 1], "count": True, "census": True,
+                   "time": MP_TIMED, "kw": {"density_mode": mode},
+                   "label": "%s K=%d %s" % ("wide" if k > 64 else "spill", k,
+                                            mode)}
+            if write and not runs:
+                run.update(frames=2, write=write)
+            runs.append(run)
+    del base
+    torch.cuda.empty_cache()
+    return runs
+
+
+def summed(counts):
+    total = {}
+    for c in counts:
+        for key, n in c.items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def hold_mp_run(tag, run, single, results, j, n, card):
+    """One run over processes against the single-controller run: every
+    process held its shards bit for bit (in the worker); here overflow 0,
+    every particle once, the launches of a step summed over the
+    processes equal to the single controller's, and the times."""
+    ranks = [res[j] for res in results]
+    if single["overflow"] != (0, 0) or any(r["overflow"] != (0, 0)
+                                           for r in ranks):
+        raise AssertionError("%s: overflow %s" % (tag, [r["overflow"]
+                                                        for r in ranks]))
+    pids = np.sort(np.concatenate([r["pids"] for r in ranks]))
+    if not np.array_equal(pids, np.arange(n, dtype=pids.dtype)):
+        raise AssertionError("%s: %d live slots, not each of the %d "
+                             "particles once" % (tag, pids.size, n))
+    launches = summed(r["launches"] for r in ranks)
+    if launches != single["launches"] or not launches:
+        raise AssertionError("%s: launches over the processes %s, single "
+                             "controller %s" % (tag, launches,
+                                                single["launches"]))
+    ms_mp = 1e3 * max(r["timed"][0] for r in ranks) / MP_TIMED
+    ms_one = 1e3 * single["timed"][0] / MP_TIMED
+    syncs = max(r["timed"][2] for r in ranks) / MP_TIMED
+    mb = max(r["timed"][3] for r in ranks) / MP_TIMED / 1e6
+    ms_sync = 1e3 * max(r["timed"][4] for r in ranks) / MP_TIMED
+    ms_x = 1e3 * max(r["timed"][5] for r in ranks) / MP_TIMED
+    print("%s: N=%d, %d slots a shard, %d steps: every process's shards "
+          "bit-identical to the single-controller step's (x, v, pid%s), "
+          "overflow 0, every particle once; launches a step over all "
+          "processes %s (= the single controller's); %.4f ms/step over "
+          "processes, %.4f ms/step single controller (ratio %.3f; host "
+          "clock over %d steps after 2, barrier to barrier); a step a "
+          "process at most: %.1f host syncs (%.4f ms waiting in them for "
+          "the device and the copies to the host), %.2f MB sent, %.4f ms "
+          "in the rest of the cross-process exchanges (Gloo's staging of "
+          "the halos and migrant buffers through pinned host memory, host "
+          "clock; the single controller makes none) [%s]"
+          % (tag, n, single["capacity"], MP_STEPS,
+             ", rho" if run["state"][2] is not None else "",
+             json.dumps(launches), ms_mp, ms_one, ms_mp / ms_one, MP_TIMED,
+             syncs, ms_sync, mb, ms_x, card))
+    return launches, (ms_mp, ms_one, syncs, mb, ms_sync, ms_x)
+
+
+def mp_cycle_files(tag, write, n, cap, card):
+    """The dump cycle's files: byte-equal to one process's, every
+    particle once in each frame, ``verify(deep=True)``."""
+    for kind, path in write.items():
+        with open(path, "rb") as a, open(path + ".one", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("%s: the %s file differs from one "
+                                     "process's" % (tag, kind))
+        with tpgsd_torch.pypgsd.PGSDFile(open(path, "rb")) as f:
+            if f.nframes != 2:
+                raise AssertionError("%s: %d frames" % (tag, f.nframes))
+            for frame in range(2):
+                pid = f.read_chunk(frame, "log/pid")
+                pos = f.read_chunk(frame, "particles/position")
+                if (pos.shape[0] != pid.shape[0]
+                        or not np.array_equal(np.sort(pid[pid >= 0]),
+                                              np.arange(n, dtype=pid.dtype))
+                        or not np.isfinite(pos[pid >= 0]).all()):
+                    raise AssertionError("%s: frame %d census" % (tag, frame))
+        report = tpgsd_torch.pypgsd.verify(path, deep=True)
+        if not report["ok"]:
+            raise AssertionError("%s: %s" % (tag, report["errors"]))
+        print("%s: 2 frames of position, velocity and pid through %s over "
+              "TorchProcessComm (%.1f MB; each process wrote its own "
+              "shards, %d slots a shard): byte-equal to the same frames "
+              "written by one process, every particle once a frame, "
+              "pypgsd.verify(deep=True) ok [%s]"
+              % (tag, {"sharded": "ShardedFrameWriter",
+                       "composed": "ComposedFrameWriter"}[kind],
+                 os.path.getsize(path) / 1e6, cap, card))
+
+
+def phase_kill_controller(card):
+    """Phase 12: the controller killed mid-frame over 4 processes (a
+    small file): the file reopens at exactly 3 frames."""
+    tag = "phase 12 (controller killed)"
+    workdir = tempfile.mkdtemp(prefix="tpgsd_mp_kill_")
+    try:
+        path = os.path.join(workdir, "killed.gsd")
+        worker.write_case(workdir, [{"kind": "kill", "path": path}])
+        done = launch.spawn(workdir, 4, MP_TIMEOUT_S)
+        if done.returncodes[0] != -9 or done.timed_out:
+            raise AssertionError("%s: exit codes %s\n%s" % (
+                tag, done.returncodes, done.outputs[0][-2000:]))
+        data = np.arange(16, dtype=np.float64)
+        with tpgsd_torch.pypgsd.PGSDFile(open(path, "rb")) as f:
+            if f.nframes != 3 or f.chunk_exists(3, "d") or not all(
+                    np.array_equal(f.read_chunk(i, "d"), data + i)
+                    for i in range(3)):
+                raise AssertionError("%s: %d frames" % (tag, f.nframes))
+        if not tpgsd_torch.pypgsd.verify(path, deep=True)["ok"]:
+            raise AssertionError("%s: verify" % tag)
+        print("%s: 4 processes, rank 0 (the controller, which hosts the "
+              "group's store) killed after its frame-3 bytes, before the "
+              "index commit: exit codes %s; the file reopens at 3 frames, "
+              "pypgsd.verify(deep=True) ok [%s]" % (tag, done.returncodes,
+                                                    card))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_nccl_wiring(dev, card):
+    """Phase 12: a one-process NCCL group (the only NCCL group one card
+    allows): ``TorchProcessComm`` over its own Gloo group beside the NCCL
+    default group, the slab step's 2 shards on ``cuda:0`` (exchanged
+    within the process) held bit for bit to the single controller, and a
+    frame written over the communicator, byte-equal."""
+    tag = "phase 12 (NCCL, one process)"
+    db = dam_break(n_side=N_100K, capacity="auto", device=dev)
+    workdir = tempfile.mkdtemp(prefix="tpgsd_mp_nccl_")
+    try:
+        run = mp_runs("slab", None, db, (db.grid.capacity,), dev)[0]
+        path = os.path.join(workdir, "nccl.gsd")
+        run.update(devices=[str(dev)] * 2, steps=2, hold=[1], time=0,
+                   frames=1, write={"sharded": path})
+        worker.over_processes(workdir, [run], 1, MP_TIMEOUT_S,
+                              backend="nccl")
+        with open(path, "rb") as a, open(path + ".one", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("%s: the file differs" % tag)
+        print("%s: N=%d on 2 shards of cuda:0 in one process of an NCCL "
+              "group: bit-identical to the single controller, the frame "
+              "byte-equal; this proves the wiring only [%s]"
+              % (tag, db.n, card))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_processes(dev, card):
+    """Phase 12: the slab (2 processes), (2, 2) (4) and (2, 2, 2) (8)
+    decompositions on the 1M dam breaks, one process a shard on
+    ``cuda:0`` over Gloo, each run against the single-controller step
+    run here; the (2, 2) dump cycle through both writers; the controller
+    killed mid-frame; the NCCL wiring.  Returns each form's launches a
+    role over all processes in one step, and the times."""
+    t0 = time.perf_counter()
+    launches, times = {}, {}
+    for form, nprocs, shape, ks in MP_FORMS:
+        db = (block_dam_break(dev) if form != "slab" else
+              dam_break(n_side=N_1M, capacity="auto", capacity_headroom=1.15,
+                        device=dev))
+        workdir = tempfile.mkdtemp(prefix="tpgsd_mp_%s_" % form)
+        try:
+            write = None
+            if form == "2d":
+                write = {"sharded": os.path.join(workdir, "cycle.gsd"),
+                         "composed": os.path.join(workdir, "composed.gsd")}
+            runs = mp_runs(form, shape, db, ks, dev, write)
+            n = db.n
+            del db
+            torch.cuda.empty_cache()
+            t_form = time.perf_counter()
+            singles, results = worker.over_processes(workdir, runs, nprocs,
+                                                     MP_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t_form
+            for j, run in enumerate(runs):
+                tag = "phase 12 (1M %s %s, %d processes)" % (
+                    form, run["label"], nprocs)
+                counts, ms = hold_mp_run(tag, run, singles[j], results, j, n,
+                                         card)
+                roles = launches.setdefault(form, {})
+                for key, v in counts.items():
+                    roles[key] = max(roles.get(key, 0), v)
+                times["%s %s" % (form, run["label"])] = ms
+                if run.get("write"):
+                    mp_cycle_files(tag, run["write"], n, singles[j]["capacity"],
+                                   card)
+            print("phase 12 (1M %s): %d processes, %d runs, %.1f s with the "
+                  "single-controller runs and the spawn [%s]"
+                  % (form, nprocs, len(runs), spawn_s, card))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    phase_kill_controller(card)
+    phase_nccl_wiring(dev, card)
+    print("phase 12: one GPU: every process shares cuda:0, so NCCL "
+          "point-to-point and cross-device copies were not exercised; the "
+          "halos, migrants and CFL maxima between processes went through "
+          "Gloo and pinned host memory [%s]" % card)
+    print("phase 12 ran %.1f s [%s]" % (time.perf_counter() - t0, card))
+    return launches, times
+
+
 def check_no_reference_modules():
     """The run must not have loaded JAX or the JAX package."""
     loaded = sorted(
@@ -3783,6 +4037,7 @@ def main():
     t11 = time.perf_counter()
     block_counts, _block_ms = phase_blocks(dev, card)
     print("phase 11 ran %.1f s [%s]" % (time.perf_counter() - t11, card))
+    mp_counts, _mp_times = phase_processes(dev, card)
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"
@@ -3802,6 +4057,10 @@ def main():
             # and in one 1M step of the (2, 2) and (2, 2, 2) block forms
             "decomp2d_launches": block_counts["2d"].get(key, 0),
             "decomp3d_launches": block_counts["3d"].get(key, 0),
+            # and in one 1M step of each form over processes, summed over
+            # the processes (phase 12)
+            "mp_launches": {form: mp_counts[form].get(key, 0)
+                            for form in mp_counts},
             "max_abs_err": errs[key]["abs"],
             "max_scaled_err": errs[key]["scaled"],
             "ms": times[key]["ms"],

@@ -36,6 +36,7 @@ from tpgsd.sph.distributed2d import (
 )
 from tpgsd.sph.distributed2d import make_distributed2d_step_fn as ref_make_step
 from tpgsd_torch.parallel import Mesh, make_mesh, make_mesh2d, make_mesh3d
+from tpgsd_torch.parallel.exchange import Exchange
 from tpgsd_torch.sph import (
     collect_state,
     distribute_state,
@@ -357,7 +358,8 @@ def test_migration_helper_keeps_pids_past_2_24_exact():
     neighbours = [_block_neighbours((d, 0), (2, 1), 0, False)
                   for d in range(2)]
     out = _migrate_axis(rows, 0, neighbours, [(0.0, 1.0), (1.0, 2.0)],
-                        False, 0.0, 2.0, 4, [torch.device(CPU)] * 2)
+                        False, 0.0, 2.0, 4,
+                        Exchange(Mesh(devices=(torch.device(CPU),) * 2)))
     assert out[0][1].tolist() == [-1, -1, big[2], -1]
     assert out[1][1].tolist() == [big[0], big[1], -1, -1]
     assert out[1][0][:2, 0].tolist() == [1.25, 1.5]

@@ -174,6 +174,19 @@ _STANDALONE = textwrap.dedent(
     spin = make_step_fn(vortex.grid, vortex.params, periodic=True, device="cpu")
     moved, _aux = spin(vortex.state)
     assert moved.x.shape == vortex.state.x.shape
+    import torch.distributed as dist
+    from tpgsd_torch.parallel import ComposedFrameWriter, launch, worker
+    from tpgsd_torch.parallel.exchange import Exchange
+    from tpgsd_torch.parallel import make_mesh
+    comm = launch.init_process_group(0, 1, launch.free_port())
+    assert not Exchange(make_mesh(devices=["cpu"] * 2, comm=comm)).spans_processes
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "composed.gsd")
+        with ComposedFrameWriter(path, application="t", comm=comm) as w:
+            w.write_frame({"particles/position": moved.x})
+        assert tpgsd_torch.pypgsd.verify(path, deep=True)["ok"]
+    dist.destroy_process_group()
+    assert callable(worker.drive) and callable(worker.main)
     assert sys.modules["jax"] is None and sys.modules["tpgsd"] is None
     assert not [m for m in sys.modules if m.startswith(("jax.", "tpgsd."))]
     print("STANDALONE_OK")
@@ -183,9 +196,11 @@ _STANDALONE = textwrap.dedent(
 
 def test_port_runs_without_jax():
     """The continuity entry with its dump and read-back, the slab step
-    streaming a frame through ``SlabDumpChannel`` with its fsck, and a
-    periodic step, in a process where neither ``jax`` nor ``tpgsd`` can
-    be imported."""
+    streaming a frame through ``SlabDumpChannel`` with its fsck, a
+    periodic step, and a one-process group's ``TorchProcessComm`` under
+    the exchange seam and the composing writer, with the spawned
+    workers' module imported, in a process where neither ``jax`` nor
+    ``tpgsd`` can be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", _STANDALONE], cwd=str(REPO), env=env,
@@ -202,5 +217,9 @@ def test_port_sources_import_no_jax_and_no_jax_package_modules():
     sources = sorted((REPO / "tpgsd_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "examples" / "dam_break_demo_torch.py"]
     assert len(sources) > 20
+    # the multi-process modules, and the worker that chip_smoke.py and
+    # the multi-process tests spawn, are scanned too
+    for module in ("comm", "compose_io", "exchange", "launch", "worker"):
+        assert REPO / "tpgsd_torch" / "parallel" / (module + ".py") in sources
     offending = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offending == []

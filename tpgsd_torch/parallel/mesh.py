@@ -2,13 +2,14 @@
 ``tpgsd.parallel.mesh``: ``make_mesh``, ``make_mesh2d`` and
 ``make_mesh3d``).
 
-The reference's decompositions are single-controller: one process runs
-the step body on every device of a 1-D ``jax.sharding.Mesh`` through
-``shard_map`` and exchanges halos with ``lax.ppermute``.  The port keeps
-that design: one Python process drives every shard of a :class:`Mesh`,
-a tuple of ``torch.device``, and an exchange is a copy to the
-neighbour's device.  A device may repeat, so one GPU holds several
-shards (``make_mesh(devices=["cuda:0"] * 2)``), and so do the CPU tests
+The reference's decompositions run the step body on every device of a
+``jax.sharding.Mesh`` through ``shard_map`` and exchange halos with
+``lax.ppermute``.  In the port one Python process drives every shard of
+a :class:`Mesh` it owns, a tuple of ``torch.device``; an exchange
+between two of its shards is a copy to the neighbour's device, and
+between processes a message (:mod:`tpgsd_torch.parallel.exchange`).  A
+device may repeat, so one GPU holds several shards
+(``make_mesh(devices=["cuda:0"] * 2)``), and so do the CPU tests
 (``make_mesh(devices=["cpu"] * 4)``).
 
 The reference's GSPMD helpers (``row_sharding``, ``pad_rows``,
@@ -19,6 +20,13 @@ A block mesh (:func:`make_mesh2d`, :func:`make_mesh3d`) is the same
 tuple of devices with a ``shape``: block ``(i, j)`` of a ``(px, py)``
 mesh is shard ``i * py + j`` (C order, as the reference's ``reshape``
 of its device list).
+
+With ``comm=`` (a :class:`~tpgsd_torch.parallel.comm.TorchProcessComm`)
+the mesh spans processes, as the reference's does under
+``jax.distributed``: each process names its own devices, and the mesh is
+their allgather in rank order (the order of the reference's
+``jax.devices()`` across processes).  ``owners[d]`` is the rank that
+drives shard ``d``, and :attr:`Mesh.local` lists this process's shards.
 """
 
 from typing import NamedTuple
@@ -30,27 +38,40 @@ import torch
 class _MeshFields(NamedTuple):
     devices: tuple  # of torch.device, one a shard
     shape: tuple  # the block shape; (len(devices),) for a 1-D mesh
+    owners: tuple  # the rank of the process that drives each shard
+    rank: int  # this process's rank
 
 
 class Mesh(_MeshFields):
     """A mesh of shards: shard ``d`` lives on ``devices[d]``, at block
-    ``numpy.unravel_index(d, shape)``.  ``shape`` defaults to
-    ``(len(devices),)``, the 1-D mesh of the slab step."""
+    ``numpy.unravel_index(d, shape)``, driven by process ``owners[d]``.
+    ``shape`` defaults to ``(len(devices),)``, the 1-D mesh of the slab
+    step; ``owners`` to every shard on this process (``rank`` 0)."""
 
     __slots__ = ()
 
-    def __new__(cls, devices, shape=None):
+    def __new__(cls, devices, shape=None, owners=None, rank=0):
         devices = tuple(devices)
         shape = (len(devices),) if shape is None else tuple(
             int(s) for s in shape)
         if int(np.prod(shape)) != len(devices):
             raise ValueError("a mesh of shape %s needs %d devices, got %d"
                              % (shape, int(np.prod(shape)), len(devices)))
-        return super().__new__(cls, devices, shape)
+        owners = (int(rank),) * len(devices) if owners is None else tuple(
+            int(o) for o in owners)
+        if len(owners) != len(devices):
+            raise ValueError("%d owners for %d shards"
+                             % (len(owners), len(devices)))
+        return super().__new__(cls, devices, shape, owners, int(rank))
 
     @property
     def size(self):
         return len(self.devices)
+
+    @property
+    def local(self):
+        """The shards this process drives, in mesh order."""
+        return tuple(d for d, o in enumerate(self.owners) if o == self.rank)
 
 
 def _device(d):
@@ -60,7 +81,24 @@ def _device(d):
     return dev
 
 
-def make_mesh(n_devices=None, devices=None):
+def _over(comm, devs, shape=None):
+    """The :class:`Mesh` of ``shape`` over this process's ``devs`` alone,
+    or with a ``comm`` of several processes, over every process's devices
+    in rank order (each process keeps its own device objects); the
+    devices are cut to the shape's product."""
+    devices, owners, rank = list(devs), None, 0
+    if comm is not None and comm.size > 1:
+        devices, owners, rank = [], [], comm.rank
+        for r, names in enumerate(comm.allgather([str(d) for d in devs])):
+            devices += list(devs) if r == rank else [torch.device(n)
+                                                     for n in names]
+            owners += [r] * len(names)
+    n = len(devices) if shape is None else int(np.prod(shape))
+    return Mesh(devices=devices[:n], shape=shape,
+                owners=None if owners is None else owners[:n], rank=rank)
+
+
+def make_mesh(n_devices=None, devices=None, comm=None):
     """A 1-D :class:`Mesh` of ``n_devices`` shards.
 
     By default the shards are every visible CUDA device, one each, or
@@ -71,6 +109,10 @@ def make_mesh(n_devices=None, devices=None):
     ``torch.device``, repeats allowed: ``["cuda:0"] * 2`` puts two
     shards on one GPU, ``["cpu"] * 4`` four on the CPU); ``n_devices``
     must then be ``None`` or its length.
+
+    With ``comm`` (a :class:`~tpgsd_torch.parallel.comm.TorchProcessComm`)
+    ``n_devices`` and ``devices`` name this process's shards, and the mesh
+    is every process's, in rank order (a collective call).
     """
     if devices is not None:
         devs = tuple(_device(d) for d in devices)
@@ -81,7 +123,7 @@ def make_mesh(n_devices=None, devices=None):
                 "make_mesh(n_devices=%d) got %d devices"
                 % (int(n_devices), len(devs))
             )
-        return Mesh(devices=devs)
+        return _over(comm, devs)
     gpus = _visible_gpus("make_mesh")
     if n_devices is not None and len(gpus) < int(n_devices):
         raise ValueError(
@@ -90,7 +132,7 @@ def make_mesh(n_devices=None, devices=None):
             % (int(n_devices), len(gpus), int(n_devices))
         )
     n = len(gpus) if n_devices is None else int(n_devices)
-    return Mesh(devices=gpus[:n])
+    return _over(comm, gpus[:n])
 
 
 def _visible_gpus(name):
@@ -103,16 +145,18 @@ def _visible_gpus(name):
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def _block_mesh(name, shape, devices, default_shape):
+def _block_mesh(name, shape, devices, default_shape, comm):
     devs = (_visible_gpus(name) if devices is None
             else [_device(d) for d in devices])
-    shape = default_shape(len(devs)) if shape is None else tuple(
+    total = (len(devs) if comm is None
+             else sum(comm.allgather(len(devs))))
+    shape = default_shape(total) if shape is None else tuple(
         int(s) for s in shape)
     n = int(np.prod(shape))
-    if n < 1 or len(devs) < n:
+    if n < 1 or total < n:
         raise ValueError("%s(shape=%s) needs %d devices, got %d"
-                         % (name, shape, n, len(devs)))
-    return Mesh(devices=devs[:n], shape=shape)
+                         % (name, shape, n, total))
+    return _over(comm, devs, shape)
 
 
 def _square(n):
@@ -130,7 +174,7 @@ def _cubic(n):
     return tuple(sorted((px, py, pz), reverse=True))
 
 
-def make_mesh2d(shape=None, devices=None):
+def make_mesh2d(shape=None, devices=None, comm=None):
     """A 2-D block :class:`Mesh` ``(px, py)`` for
     :func:`tpgsd_torch.sph.make_distributed2d_step_fn`.
 
@@ -139,13 +183,16 @@ def make_mesh2d(shape=None, devices=None):
     ``RuntimeError``.  ``shape`` defaults to the most-square
     factorisation of their count (8 -> ``(4, 2)``); the devices are cut
     to the shape's product, as the reference's ``devices[: px * py]``.
+    With ``comm``, ``devices`` are this process's and the mesh is every
+    process's, as :func:`make_mesh`'s (the count and the cut over all of
+    them).
     """
-    return _block_mesh("make_mesh2d", shape, devices, _square)
+    return _block_mesh("make_mesh2d", shape, devices, _square, comm)
 
 
-def make_mesh3d(shape=None, devices=None):
+def make_mesh3d(shape=None, devices=None, comm=None):
     """A 3-D block :class:`Mesh` ``(px, py, pz)`` for
     :func:`tpgsd_torch.sph.make_distributed3d_step_fn`: as
     :func:`make_mesh2d`, the default shape the most-cubic factorisation
     of the device count (8 -> ``(2, 2, 2)``)."""
-    return _block_mesh("make_mesh3d", shape, devices, _cubic)
+    return _block_mesh("make_mesh3d", shape, devices, _cubic, comm)

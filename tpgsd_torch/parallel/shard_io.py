@@ -7,9 +7,15 @@ reference's per-rank ``MPI_File_write_at`` (reference:
 pgsd/pgsd/pgsd.c:2225-2237).  One index entry describes the global chunk;
 the controller process commits it.
 
-Read path: each process preads its own row stripe into a host buffer and
-places it on its device.
+Read path: each process preads its own row stripe (or the rows of each of
+its shards) into a host buffer and places it on its device.
+
+With one process per rank, a global array is a :class:`ProcessShards` on
+each process: its own shards with their global row starts.  Each process
+writes only those; the controller commits the one index entry.
 """
+
+from typing import NamedTuple
 
 import numpy
 import torch
@@ -40,18 +46,46 @@ def infer_particles_n(chunks, static):
     return static
 
 
+class ProcessShards(NamedTuple):
+    """This process's row blocks of one global array (the counterpart of
+    a ``jax.Array``'s addressable shards): ``tensors[i]`` (a tensor or
+    numpy array) holds the global rows ``starts[i] ..  starts[i] +
+    len(tensors[i]) - 1`` of an array of ``shape``.  The other rows
+    belong to other processes.  Every writer and
+    :func:`read_sharded_chunk` take it; ``shape`` is the global one, so
+    :func:`infer_particles_n` reads the global row count off it."""
+
+    starts: tuple
+    tensors: tuple
+    shape: tuple
+
+
+def _host(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return numpy.asarray(a)
+
+
 def array_shards(array):
     """Decompose an array into ``([(row_start, host_ndarray), ...], shape)``.
 
     A numpy array (or array-like) and a ``torch.Tensor`` are each one
-    shard at row 0.  A CUDA tensor is copied to the host here (a
-    synchronous device-to-host copy; the async dump hands over host
-    arrays it has already snapshotted); everything downstream is
-    host-side positioned I/O.
+    shard at row 0.  A :class:`ProcessShards` gives its own shards, sorted
+    by row, a repeated row range once.  A CUDA tensor is copied to the
+    host here (a synchronous device-to-host copy; the async dump hands
+    over host arrays it has already snapshotted); everything downstream
+    is host-side positioned I/O.
     """
-    if isinstance(array, torch.Tensor):
-        array = array.detach().cpu().numpy()
-    arr = numpy.asarray(array)
+    if isinstance(array, ProcessShards):
+        shards, seen = [], set()
+        for start, t in sorted(zip(array.starts, array.tensors),
+                               key=lambda s: s[0]):
+            rows = (int(start), int(start) + int(t.shape[0]))
+            if rows not in seen:
+                seen.add(rows)
+                shards.append((int(start), _host(t)))
+        return shards, tuple(array.shape)
+    arr = _host(array)
     return [(0, arr)], arr.shape
 
 
@@ -109,13 +143,18 @@ def stripe_rows(n, rank, size):
     return start, start + base + (1 if rank < extra else 0)
 
 
-def read_sharded_chunk(file, frame, name, rank=0, size=1, device="cuda"):
+def read_sharded_chunk(file, frame, name, rank=0, size=1, device="cuda",
+                       like=None):
     """Read process ``rank``'s row stripe of a chunk into a tensor on
-    ``device``; returns ``(row_start, tensor)``.
+    ``device``; returns ``(row_start, tensor)``.  With ``like`` (a
+    :class:`ProcessShards`), read the rows of each of its shards instead,
+    each onto its tensor's device, and return a :class:`ProcessShards` of
+    the same layout (rows past the chunk's end are zeros, as the
+    reference's ``pad``).
 
-    The stripe is read at its precomputed offset (one positioned read
-    when the file's handle batches them) - no process reads rows it does
-    not own.
+    Each range is read at its precomputed offset (one batched positioned
+    read when the file's handle batches them) - no process reads rows it
+    does not own.
 
     Args:
         file: readable PGSDFile.
@@ -125,6 +164,8 @@ def read_sharded_chunk(file, frame, name, rank=0, size=1, device="cuda"):
             are split over (:func:`stripe_rows`).
         device: where the stripe is placed (the card unless the caller
             asks for ``"cpu"``).
+        like: the layout to read into (the counterpart of the
+            reference's ``sharding``).
     """
     chunk = file._find_chunk(frame, name)
     if chunk is None:
@@ -134,21 +175,38 @@ def read_sharded_chunk(file, frame, name, rank=0, size=1, device="cuda"):
     N = int(chunk["N"])
     M = int(chunk["M"])
     dtype = TYPE_TO_DTYPE[int(chunk["type"])]
-    start, stop = stripe_rows(N, rank, size)
-    rows = stop - start
-    buf = numpy.zeros(rows * M, dtype=dtype)
-    if rows > 0:
-        batched = getattr(getattr(file, "_fh", None), "pread_many", None)
-        if batched is not None:
-            location = int(chunk["location"])
-            batched([(location + start * M * dtype.itemsize, buf)])
-        else:
+    if like is None:
+        start, stop = stripe_rows(N, rank, size)
+        ranges = [(start, stop - start, device)]
+    else:
+        ranges = [(int(s), int(t.shape[0]), t.device if isinstance(
+            t, torch.Tensor) else "cpu") for s, t in zip(like.starts,
+                                                       like.tensors)]
+    bufs, reads = [], []
+    for start, rows, _dev in ranges:
+        buf = numpy.zeros(rows * M, dtype=dtype)
+        valid = max(0, min(rows, N - start))
+        if valid > 0:
+            reads.append((start, valid, buf[: valid * M]))
+        bufs.append(buf)
+    batched = getattr(getattr(file, "_fh", None), "pread_many", None)
+    if batched is not None:
+        location = int(chunk["location"])
+        batched([(location + start * M * dtype.itemsize, view)
+                 for start, _valid, view in reads])
+    else:
+        for start, valid, view in reads:
             out = file.read_chunk(
-                frame, name, N=rows, M=M, offset=start, r_all=True
+                frame, name, N=valid, M=M, offset=start, r_all=True
             )
-            buf[:] = numpy.asarray(out).reshape(-1)
-    stripe = buf.reshape(rows, M) if M > 1 else buf
-    return start, torch.from_numpy(stripe).to(device)
+            view[:] = numpy.asarray(out).reshape(-1)
+    placed = [torch.from_numpy(buf.reshape(rows, M) if M > 1 else buf).to(dev)
+              for buf, (_s, rows, dev) in zip(bufs, ranges)]
+    if like is None:
+        return ranges[0][0], placed[0]
+    return ProcessShards(starts=tuple(s for s, _r, _d in ranges),
+                         tensors=tuple(placed),
+                         shape=(N, M) if M > 1 else (N,))
 
 
 class ShardedTrajectoryReader:
@@ -267,7 +325,9 @@ class ShardedFrameWriter:
         frame, the static chunks (box, types, N, ...).
 
         Args:
-            chunks: dict mapping chunk name -> torch tensor or numpy array.
+            chunks: dict mapping chunk name -> torch tensor, numpy array
+                or :class:`ProcessShards` (this process's shards: with
+                one process per rank, each writes only its own).
             step: optional ``configuration/step`` value.
         """
         if step is not None:

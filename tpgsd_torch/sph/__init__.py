@@ -23,10 +23,13 @@ its frames stream per slab through
 The slab domain decomposition (:func:`make_distributed_step_fn`, its
 adaptive form :func:`make_adaptive_distributed_step_fn`) steps a state
 partitioned by :func:`distribute_state` over the shards of a
-:func:`tpgsd_torch.parallel.make_mesh` mesh from one process, with halo
-exchange and particle migration; several shards may share one GPU.
-:func:`collect_state` / :func:`collect_aux` gather it back to the host
-and :func:`resume_distributed` re-slabs a trajectory's last frame.
+:func:`tpgsd_torch.parallel.make_mesh` mesh, with halo exchange and
+particle migration; several shards may share one GPU.  One process
+drives every shard, or with ``make_mesh(comm=...)`` one process per rank
+drives its own (:mod:`tpgsd_torch.parallel.exchange` carries the
+messages).  :func:`collect_state` / :func:`collect_aux` gather it back
+to the host, :func:`frame_shards` hands a field to the writers and
+:func:`resume_distributed` re-slabs a trajectory's last frame.
 The 2-D and 3-D block decompositions (:func:`make_distributed2d_step_fn`,
 :func:`make_distributed3d_step_fn`, their adaptive forms,
 :func:`distribute_state_2d` / :func:`distribute_state_3d`,
@@ -61,6 +64,7 @@ from .distributed import (
     collect_aux,
     collect_state,
     distribute_state,
+    frame_shards,
     make_adaptive_distributed_step_fn,
     make_distributed_step_fn,
 )
@@ -111,6 +115,7 @@ __all__ = [
     "build_cells_spill",
     "collect_aux",
     "collect_state",
+    "frame_shards",
     "dam_break",
     "dam_break_2d",
     "density_and_pressure",

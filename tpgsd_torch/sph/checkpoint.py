@@ -91,13 +91,14 @@ def resume(name, *, comm, device="cuda", extra_chunks=(),
     return state, step, writer, extras
 
 
-def _last_frame(name, continuity):
+def _last_frame(name, continuity, comm):
     """``(SPHState of numpy arrays, step)`` of the last frame of
-    ``name``, read whole (``rho`` only in continuity mode)."""
+    ``name``, read whole (``rho`` only in continuity mode); every process
+    of ``comm`` opens the file collectively and reads it whole."""
     from .. import fl
 
     rho = None
-    with fl.open(name, "r") as f:
+    with fl.open(name, "r", comm=comm) as f:
         if f.nframes == 0:
             raise ValueError(
                 "cannot resume from an empty trajectory: " + str(name))
@@ -114,17 +115,18 @@ def _last_frame(name, continuity):
     return SPHState(x=x, v=v, rho=rho), step
 
 
-def _resume_onto(name, distribute, application, density_mode):
-    state, step = _last_frame(name, density_mode == "continuity")
+def _resume_onto(name, distribute, application, density_mode, comm):
+    comm = SingleComm() if comm is None else comm
+    state, step = _last_frame(name, density_mode == "continuity", comm)
     dist, cap = distribute(state)
     writer = ShardedFrameWriter(name, mode="a", application=application,
-                                comm=SingleComm())
+                                comm=comm)
     return dist, cap, step, writer
 
 
 def resume_distributed(name, grid, mesh, capacity=None,
                        application="tpgsd.sph", decomp_axis=0,
-                       density_mode="summation"):
+                       density_mode="summation", comm=None):
     """Resume the slab-decomposed loop from the last complete frame of
     ``name``.
 
@@ -134,9 +136,12 @@ def resume_distributed(name, grid, mesh, capacity=None,
     positions.  ``decomp_axis`` selects x- (0) or y-slabs (1), as the
     step builder's.  ``density_mode="continuity"`` also re-slabs the
     frame's ``particles/density`` chunk into ``DistState.rho``: the
-    carried density travels with its particle.  The decomposed loop is
-    driven from one process, so the file is read whole and the writer is
-    a single-controller one (``comm=SingleComm()``).
+    carried density travels with its particle.  Every process reads the
+    file whole, collectively over ``comm``, and puts its own shards of
+    ``mesh`` on their devices; the appending writer takes ``comm`` too.
+    ``comm=None`` is one process driving every shard (``SingleComm()``);
+    with a mesh over several processes pass the mesh's
+    :class:`~tpgsd_torch.parallel.TorchProcessComm`.
 
     Returns:
         ``(dist_state, capacity, step, writer)``: the
@@ -149,17 +154,19 @@ def resume_distributed(name, grid, mesh, capacity=None,
 
     return _resume_onto(name, lambda st: distribute_state(
         st, grid, mesh, capacity=capacity, decomp_axis=decomp_axis),
-        application, density_mode)
+        application, density_mode, comm)
 
 
 def resume_distributed2d(name, grid, mesh, capacity=None,
-                         application="tpgsd.sph", density_mode="summation"):
+                         application="tpgsd.sph", density_mode="summation",
+                         comm=None):
     """Resume the 2-D block-decomposed loop from the last complete frame
     of ``name``: as :func:`resume_distributed`, block ownership re-derived
     for the ``(px, py)`` ``mesh``
     (:func:`~tpgsd_torch.sph.distributed2d.distribute_state_2d`), whose
     shape may differ from the writing run's (a file the slab or 3-D form
-    wrote too: the file records the global state only).
+    wrote too: the file records the global state only); ``comm`` as
+    :func:`resume_distributed`'s.
 
     Returns:
         ``(dist_state, capacity, step, writer)`` as
@@ -168,11 +175,12 @@ def resume_distributed2d(name, grid, mesh, capacity=None,
     from .distributed2d import distribute_state_2d
 
     return _resume_onto(name, lambda st: distribute_state_2d(
-        st, grid, mesh, capacity=capacity), application, density_mode)
+        st, grid, mesh, capacity=capacity), application, density_mode, comm)
 
 
 def resume_distributed3d(name, grid, mesh, capacity=None,
-                         application="tpgsd.sph", density_mode="summation"):
+                         application="tpgsd.sph", density_mode="summation",
+                         comm=None):
     """Resume the 3-D block-decomposed loop from the last complete frame
     of ``name`` onto a ``(px, py, pz)`` ``mesh``, as
     :func:`resume_distributed2d`
@@ -180,4 +188,4 @@ def resume_distributed3d(name, grid, mesh, capacity=None,
     from .distributed3d import distribute_state_3d
 
     return _resume_onto(name, lambda st: distribute_state_3d(
-        st, grid, mesh, capacity=capacity), application, density_mode)
+        st, grid, mesh, capacity=capacity), application, density_mode, comm)

@@ -15,10 +15,13 @@ step communicates only
 No global sort and no gather of the whole state.
 
 The reference runs one body on every device at once (``shard_map``) and
-exchanges with ``lax.ppermute``, a collective.  Here one process drives
-the shards from a Python loop, and an exchange is a copy of a
-neighbour's planes to the receiving shard's device (a no-op view when
-both shards share a device, as they do on a one-GPU machine).  So the
+exchanges with ``lax.ppermute``, a collective.  Here each process drives
+its shards of the mesh (every shard, with one process; its own, with one
+process per rank: ``make_mesh(comm=...)``) from a Python loop, and the
+exchanges go through :class:`~tpgsd_torch.parallel.exchange.Exchange`: a
+copy of a neighbour's planes to the receiving shard's device (a no-op
+view when both shards share a device, as they do on a one-GPU machine)
+between two shards of one process, a message between processes.  So the
 step runs in stages, each over every shard before the next reads a
 neighbour's output: (1) the local cell build and the dense tiers, (2) the
 halo exchange, (3) the density pass and the exchange of the owners'
@@ -52,6 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.exchange import Exchange
 from . import ops
 from .cells import CellGrid, CellList, _sorted_slot_map, gather_from_cells
 from .cells import wrap_axes as _wrap_axes
@@ -67,8 +71,9 @@ from .step import (
 
 
 class DistState(NamedTuple):
-    """Per-shard particle slots: each field holds one tensor a shard of
-    the mesh, on that shard's device.
+    """Per-shard particle slots: each field holds one tensor a shard that
+    this process drives (every shard of a one-process mesh), in mesh
+    order, on that shard's device.
 
     ``pid`` keeps a particle's identity across migrations (-1 = dead
     slot).  ``rho`` is the carried density, set in continuity mode only
@@ -82,7 +87,7 @@ class DistState(NamedTuple):
 
 
 class DistAux(NamedTuple):
-    """The step's per-shard outputs, one tensor a shard."""
+    """The step's per-shard outputs, one tensor a shard of this process."""
 
     rho: tuple  # [cap]
     p: tuple  # [cap]
@@ -149,26 +154,24 @@ def _neighbours(d, n_shards, ring):
     return left, right
 
 
-def _halo_exchange(cores, nynz, ring, devices):
+def _halo_exchange(cores, nynz, ring, xchg):
     """Append each x-neighbour's boundary cell plane as ghost planes.
 
-    ``cores``: one ``[..., c, K]`` tensor a shard (cell axis -2).  Returns
-    the extended ``[..., nynz + c + nynz, K]`` tensors, contiguous.  The
-    left ghost of shard ``d`` is the last plane of shard ``d - 1``, its
-    right ghost the first plane of shard ``d + 1``; past a non-periodic
-    end the ghost is zeros, on a ring the far end's plane."""
+    ``cores``: one ``[..., c, K]`` tensor a shard of this process (cell
+    axis -2).  Returns the extended ``[..., nynz + c + nynz, K]`` tensors,
+    contiguous.  The left ghost of shard ``d`` is the last plane of shard
+    ``d - 1``, its right ghost the first plane of shard ``d + 1`` (through
+    ``xchg``, an :class:`~tpgsd_torch.parallel.exchange.Exchange`); past a
+    non-periodic end the ghost is zeros, on a ring the far end's plane."""
+    c = cores[0].shape[-2]
+    got = xchg([{"L": a[..., c - nynz:c, :], "R": a[..., 0:nynz, :]}
+                for a in cores],
+               [dict(zip("LR", _neighbours(d, xchg.size, ring)))
+                for d in range(xchg.size)])
     out = []
-    for d, a in enumerate(cores):
-        c = a.shape[-2]
-        left, right = _neighbours(d, len(cores), ring)
-        ghosts = []
-        for src, planes in ((left, slice(c - nynz, c)), (right,
-                                                         slice(0, nynz))):
-            if src is None:
-                ghosts.append(a.new_zeros(a.shape[:-2] + (nynz, a.shape[-1])))
-            else:
-                ghosts.append(cores[src][..., planes, :].to(
-                    devices[d], non_blocking=True))
+    for a, g in zip(cores, got):
+        ghosts = [a.new_zeros(a.shape[:-2] + (nynz, a.shape[-1]))
+                  if g[key] is None else g[key] for key in "LR"]
         out.append(torch.cat([ghosts[0], a, ghosts[1]], dim=-2))
     return out
 
@@ -235,18 +238,37 @@ def concat_shards(tensors):
     field as one tensor of all slots on the first shard's device (the
     reference's ``[S * cap, ...]`` global array): for ``frame_of`` of a
     dump, e.g. ``lambda s, aux: [concat_shards(s.x),
-    concat_shards(aux.rho)]``."""
+    concat_shards(aux.rho)]``.  On a mesh over several processes these
+    are this process's slots only; hand a writer :func:`frame_shards`
+    there."""
     dev = tensors[0].device
     return torch.cat([t.to(dev, non_blocking=True) for t in tensors])
 
 
-def _per_device(devices, make):
-    """``make(device)`` once per distinct device, as a list a shard."""
+def frame_shards(tensors, mesh):
+    """A :class:`DistState` or :class:`DistAux` field of this process as
+    the writers' :class:`~tpgsd_torch.parallel.ProcessShards`: shard
+    ``d``'s slots are rows ``d * cap ..`` of the ``[S * cap, ...]`` global
+    array that :func:`concat_shards` makes in one process, so a file
+    written by every process from its own shards is byte-equal to the
+    one process's."""
+    from ..parallel.shard_io import ProcessShards
+
+    cap = int(tensors[0].shape[0])
+    return ProcessShards(
+        starts=tuple(d * cap for d in mesh.local), tensors=tuple(tensors),
+        shape=(mesh.size * cap,) + tuple(tensors[0].shape[1:]))
+
+
+def _per_device(devices, local, make):
+    """``make(device)`` once per distinct device of the ``local`` shards,
+    as a list a shard of the mesh (``None`` for other processes')."""
     made = {}
-    for d in devices:
-        if d not in made:
-            made[d] = make(d)
-    return [made[d] for d in devices]
+    for d in local:
+        if devices[d] not in made:
+            made[devices[d]] = make(devices[d])
+    return [made.get(dev) if d in local else None
+            for d, dev in enumerate(devices)]
 
 
 def make_distributed_step_fn(
@@ -352,6 +374,8 @@ def make_distributed_step_fn(
     if periodic and nx < 3:
         raise ValueError("periodic needs >= 3 cells along x")
     _check_device_type(devices)
+    xchg = Exchange(mesh)
+    local = xchg.local
     nxl = nx // n_sh
     nynz = ny * nz
     c = nxl * nynz
@@ -393,15 +417,18 @@ def make_distributed_step_fn(
                for lo in slab_lo]
     lx = float(np.float32(cell * nx))
     lo_local = [
-        torch.from_numpy(lo_np + np.asarray([off, 0.0, 0.0], np.float32)).to(d)
-        for off, d in zip(offs, devices)
+        torch.from_numpy(lo_np + np.asarray([off, 0.0, 0.0], np.float32)).to(
+            devices[d]) if d in local else None
+        for d, off in enumerate(offs)
     ]
-    lo = _per_device(devices, lambda d: torch.from_numpy(lo_np).to(d))
-    hi = _per_device(devices, lambda d: torch.from_numpy(hi_np).to(d))
-    gravity = _per_device(devices, lambda d: torch.from_numpy(
+    lo = _per_device(devices, local, lambda d: torch.from_numpy(lo_np).to(d))
+    hi = _per_device(devices, local, lambda d: torch.from_numpy(hi_np).to(d))
+    gravity = _per_device(devices, local, lambda d: torch.from_numpy(
         np.asarray(params.gravity, np.float32)).to(d))
-    wrapped = _per_device(devices, lambda d: torch.from_numpy(wrap).to(d))
-    sentinel = _sentinels(devices, params, continuity, xsph, compute_energy)
+    wrapped = _per_device(devices, local,
+                          lambda d: torch.from_numpy(wrap).to(d))
+    sentinel = _sentinels(devices, local, params, continuity, xsph,
+                          compute_energy)
 
     def tiers_of(ext):
         """Per tier ``(x, v, rho or None, live)`` of one shard's extended
@@ -411,33 +438,38 @@ def make_distributed_step_fn(
 
     @torch.inference_mode()
     def step(state, dt=params.dt):
-        _check_state(state, devices, cap, continuity, "distribute_state")
+        _check_state(state, [devices[d] for d in local], cap, continuity,
+                     "distribute_state")
+        # every per-shard list below runs over this process's shards:
+        # entry i is shard local[i]
         xs, vs, pids = state.x, state.v, state.pid
         alive = [p >= 0 for p in pids]
-        dts = [dt.to(d, non_blocking=True) if isinstance(dt, torch.Tensor)
-               else dt for d in devices]
+        dts = [dt.to(devices[d], non_blocking=True)
+               if isinstance(dt, torch.Tensor) else dt for d in local]
 
         # stage 1: the local cells and dense tiers [T, F, c, K] of every
         # shard (x | v | (rho) | live)
         cells, dense = [], []
-        for d in range(n_sh):
-            cl = _local_cells(xs[d], alive[d], nxl, ny, nz, kd, lo_local[d],
+        for i, d in enumerate(local):
+            cl = _local_cells(xs[i], alive[i], nxl, ny, nz, kd, lo_local[d],
                               cell)
-            cols = [xs[d], vs[d]]
+            cols = [xs[i], vs[i]]
             if continuity:
-                cols.append(state.rho[d][:, None])
-            cols.append(xs[d].new_ones((cap, 1)))
+                cols.append(state.rho[i][:, None])
+            cols.append(xs[i].new_ones((cap, 1)))
             cells.append(cl)
             dense.append(_scatter(torch.cat(cols, dim=1), cl, c, k, n_tiers))
 
         # stage 2: one plane of cells each way; on the ring the far end's
         # planes arrive with raw coordinates, shifted by -+Lx here so
         # every ghost position is geometrically true
-        ext = _halo_exchange(dense, nynz, periodic, devices)
+        ext = _halo_exchange(dense, nynz, periodic, xchg)
         del dense
         if periodic:
-            ext[0][:, 0, :nynz] -= lx
-            ext[-1][:, 0, nynz + c:] += lx
+            if local[0] == 0:
+                ext[0][:, 0, :nynz] -= lx
+            if local[-1] == n_sh - 1:
+                ext[-1][:, 0, nynz + c:] += lx
         tiers = [tiers_of(e) for e in ext]
 
         # stage 3: density and pressure of every slot of the extended grid
@@ -457,7 +489,7 @@ def make_distributed_step_fn(
                                                density_renorm))
                     for r, t in zip(rho_t, tt)
                 ]))  # [T, 2, c, K]
-            rp_ext = _halo_exchange(rp_core, nynz, periodic, devices)
+            rp_ext = _halo_exchange(rp_core, nynz, periodic, xchg)
             del rp_core
             rho_p = [
                 [(torch.where(t[3], rp[0], params.rho0),
@@ -473,11 +505,11 @@ def make_distributed_step_fn(
             # as density, a ghost's normals are the owner's
             n_core = [torch.stack([n[:, core] for n in passes.normals(f)])
                       for f in fields]  # [T, 3, c, K]
-            n_ext = _halo_exchange(n_core, nynz, periodic, devices)
+            n_ext = _halo_exchange(n_core, nynz, periodic, xchg)
             del n_core
-            for d, f in enumerate(fields):
-                ns = [torch.where(t[4], n, 0.0) for t, n in zip(f, n_ext[d])]
-                for m, st in zip(mom[d], passes.force(f, ns)):
+            for i, f in enumerate(fields):
+                ns = [torch.where(t[4], n, 0.0) for t, n in zip(f, n_ext[i])]
+                for m, st in zip(mom[i], passes.force(f, ns)):
                     m[..., :3] += st
         energy = ([passes.energy(f) for f in fields] if compute_energy
                   else None)
@@ -485,41 +517,39 @@ def make_distributed_step_fn(
         # ... the core planes' results as one particle-order gather, and
         # the integration
         new, a2 = [], []
-        for d in range(n_sh):
+        for i, d in enumerate(local):
             cols = []
             for t in range(n_tiers):
-                col = [mom[d][t][core]]
+                col = [mom[i][t][core]]
                 if not continuity:
-                    col += [rho_p[d][t][0][core, :, None],
-                            rho_p[d][t][1][core, :, None]]
+                    col += [rho_p[i][t][0][core, :, None],
+                            rho_p[i][t][1][core, :, None]]
                 if compute_energy:
-                    col.append(energy[d][t][core, :, None])
+                    col.append(energy[i][t][core, :, None])
                 cols.append(torch.cat(col, dim=-1))
-            out = _gather(torch.cat(cols, dim=1), cells[d], local_grid, kd,
+            out = _gather(torch.cat(cols, dim=1), cells[i], local_grid, kd,
                           sentinel[d])
-            new.append(integrate(d, out, xs[d], vs[d], pids[d], alive[d],
-                                 state.rho[d] if continuity else None,
-                                 dts[d], a2))
+            new.append(integrate(d, out, xs[i], vs[i], pids[i], alive[i],
+                                 state.rho[i] if continuity else None,
+                                 dts[i], a2))
         del mom, fields, tiers, ext, rho_p
 
         # stage 5: pack the migrants of every shard
-        packs = [migrants(d, pids[d], *new[d][:5]) for d in range(n_sh)]
+        packs = [migrants(d, pids[i], *new[i][:5])
+                 for i, d in enumerate(local)]
 
-        # stage 6: exchange and insert
+        # stage 6: exchange (a shard receives its left neighbour's
+        # right-going buffers and its right neighbour's left-going ones)
+        # and insert
+        got = xchg([{"L": pk["right"], "R": pk["left"]} for pk in packs],
+                   [dict(zip("LR", _neighbours(d, n_sh, periodic)))
+                    for d in range(n_sh)])
         out_x, out_v, out_pid, out_rho, out_p, migrate_ovf = ([] for _ in
                                                                range(6))
-        for d in range(n_sh):
-            left, right = _neighbours(d, n_sh, periodic)
-            recv = []
-            for src, side in ((left, "right"), (right, "left")):
-                if src is None:
-                    recv.append(None)
-                else:
-                    recv.append([b.to(devices[d], non_blocking=True)
-                                 for b in packs[src][side]])
-            keep, keep_pid, alive_after, send_ovf = packs[d]["keep"]
-            recv = [r if r is not None else _empty_buffers(keep, keep_pid)
-                    for r in recv]
+        for pk, g in zip(packs, got):
+            keep, keep_pid, alive_after, send_ovf = pk["keep"]
+            recv = [_empty_buffers(keep, keep_pid) if g[key] is None
+                    else g[key] for key in "LR"]
             recv_vals = torch.cat([recv[0][0], recv[1][0]])
             recv_pid = torch.cat([recv[0][1], recv[1][1]])
             recv_valid = torch.cat([recv[0][2], recv[1][2]])
@@ -648,9 +678,10 @@ def _check_state(state, devices, cap, continuity, distribute):
         )
 
 
-def _sentinels(devices, params, continuity, xsph, compute_energy):
-    """The gathered row of dropped and dead particles, one a shard: zero
-    acc, drho, dvc, p and du; rho0."""
+def _sentinels(devices, local, params, continuity, xsph, compute_energy):
+    """The gathered row of dropped and dead particles, one a shard of the
+    mesh (``None`` past this process's ``local`` shards): zero acc, drho,
+    dvc, p and du; rho0."""
     n_out = (3 + int(continuity) + 3 * int(xsph > 0)
              + 2 * int(not continuity) + int(compute_energy))
 
@@ -660,7 +691,7 @@ def _sentinels(devices, params, continuity, xsph, compute_energy):
             s[3 + 3 * int(xsph > 0)] = params.rho0
         return s
 
-    return _per_device(devices, sentinel_of)
+    return _per_device(devices, local, sentinel_of)
 
 
 def _integrate_rows(out, x, v, pid, alive, rho_in, dt, params, gravity, lo,
@@ -780,8 +811,10 @@ def _swapped_step(grid, params, mesh, _traced_dt=False, **kw):
         params._replace(gravity=_swap01_tuple(tuple(params.gravity))),
         mesh, decomp_axis=0, _traced_dt=_traced_dt, **kw,
     )
-    perm = _per_device(tuple(mesh.devices), lambda d: torch.tensor(
+    local = mesh.local
+    perm = _per_device(tuple(mesh.devices), local, lambda d: torch.tensor(
         _PERM01, dtype=torch.int64, device=d))
+    perm = [perm[d] for d in local]
 
     def swapped(state):
         # rho is a scalar field: unchanged by the swap
@@ -805,8 +838,11 @@ def make_adaptive_distributed_step_fn(grid, params, mesh, cfl=0.25,
     :func:`tpgsd_torch.sph.make_adaptive_step_fn`, computed globally.
     Each shard reports its mobile particles' largest ``|a|^2`` and its
     slots' largest ``|v|^2`` (dead and fixed slots carry ``v = 0``); the
-    maxima meet on the first shard's device, where ``dt_next`` is made,
-    and every shard steps with the same ``dt``.  No host sync.
+    maxima meet on the first shard's device of each process (across
+    processes in one ``all_reduce`` MAX), where ``dt_next`` is made, the
+    same on every process, and every shard steps with the same ``dt``.
+    No host sync with one process (Gloo stages the maxima through the
+    host: one sync a step).
 
     Args:
         grid / params / mesh: as :func:`make_distributed_step_fn`.
@@ -828,21 +864,20 @@ def make_adaptive_distributed_step_fn(grid, params, mesh, cfl=0.25,
 
 def _adaptive_step(base, params, mesh, cfl, dt_min, dt_max):
     """The CFL controller around ``base`` (a decomposed step built with
-    ``_traced_dt=True``): the shards' maxima meet on the first shard's
-    device, where ``dt_next`` is made.  Shared by every decomposition."""
+    ``_traced_dt=True``): the shards' maxima meet
+    (:meth:`~tpgsd_torch.parallel.exchange.Exchange.allreduce_max`) on
+    this process's first shard's device, where ``dt_next`` is made.
+    Shared by every decomposition."""
     if dt_max is None:
         dt_max = float(params.dt)
-    dev0 = mesh.devices[0]
-
-    def on_dev0(values):
-        return torch.stack([t.to(dev0, non_blocking=True) for t in values])
+    xchg = Exchange(mesh)
 
     @torch.inference_mode()
     def step(state, dt):
         new_state, aux, a2 = base(state, dt)
-        a2max = torch.amax(on_dev0(a2))
-        v2max = torch.amax(on_dev0(
-            [torch.amax(torch.sum(v * v, dim=-1)) for v in new_state.v]))
+        a2max, v2max = xchg.allreduce_max(
+            [torch.stack([a, torch.amax(torch.sum(v * v, dim=-1))])
+             for a, v in zip(a2, new_state.v)])
         return new_state, aux, _cfl_dt(a2max, v2max, params, cfl, dt_min,
                                        dt_max)
 
@@ -871,10 +906,11 @@ def distribute_state(state, grid, mesh, capacity=None, decomp_axis=0):
         decomp_axis: the slab axis, matching the step builder's.
 
     Returns:
-        ``(DistState, capacity)``.
+        ``(DistState, capacity)``.  On a mesh over several processes,
+        every process passes the whole state (as the reference's workers
+        hold it) and gets its own shards.
     """
-    devices = tuple(mesh.devices)
-    n_sh = len(devices)
+    n_sh = mesh.size
     nxl = grid.dims[decomp_axis] // n_sh
     x = _host(state.x).astype(np.float32, copy=False)
     slab_width = nxl * grid.cell_size
@@ -885,16 +921,17 @@ def distribute_state(state, grid, mesh, capacity=None, decomp_axis=0):
         0,
         n_sh - 1,
     )
-    return _partition(state._replace(x=x), owner, devices, capacity, "slab")
+    return _partition(state._replace(x=x), owner, mesh, capacity, "slab")
 
 
-def _partition(state, owner, devices, capacity, unit):
+def _partition(state, owner, mesh, capacity, unit):
     """Place each particle of ``state`` on the shard ``owner`` names (an
     ``[N]`` numpy array), in original-index ``pid`` order, the other
-    slots dead; ``capacity`` defaults to the smallest multiple of 8 at
-    least twice the largest shard population -> ``(DistState,
-    capacity)``.  Shared by every decomposition (``unit`` names a shard's
-    region in the error)."""
+    slots dead, and put this process's shards on their devices;
+    ``capacity`` defaults to the smallest multiple of 8 at least twice the
+    largest shard population -> ``(DistState, capacity)``.  Shared by
+    every decomposition (``unit`` names a shard's region in the error)."""
+    devices = mesh.devices
     n_sh = len(devices)
     x = _host(state.x).astype(np.float32, copy=False)
     v = _host(state.v).astype(np.float32, copy=False)
@@ -921,8 +958,8 @@ def _partition(state, owner, devices, capacity, unit):
             rhos[d, : len(sel)] = rho[sel]
 
     def put(a):
-        return tuple(torch.from_numpy(a[d]).to(dev)
-                     for d, dev in enumerate(devices))
+        return tuple(torch.from_numpy(a[d]).to(devices[d])
+                     for d in mesh.local)
 
     return DistState(
         x=put(xs), v=put(vs), pid=put(pids),
@@ -939,39 +976,47 @@ class CollectedState(NamedTuple):
     rho: "np.ndarray" = None  # [n_global] or None
 
 
-def _slots(per_shard):
-    return np.concatenate([_host(t) for t in per_shard])
+def _slots(per_shard, comm):
+    """The slots of every shard of this process, or with ``comm``, of
+    every process's (rank order)."""
+    mine = np.concatenate([_host(t) for t in per_shard])
+    if comm is None or comm.size == 1:
+        return mine
+    return np.concatenate(comm.allgather(mine))
 
 
-def collect_state(dist_state, n_global):
+def collect_state(dist_state, n_global, comm=None):
     """Gather a :class:`DistState` to the host in original ``pid``
     order -> :class:`CollectedState` of numpy arrays (reads the
-    device)."""
-    pid = _slots(dist_state.pid)
+    device).  On a mesh over several processes pass its ``comm``: every
+    process then gets the whole collection (the reference's
+    ``process_allgather(..., tiled=True)``); without it, only this
+    process's particles are set."""
+    pid = _slots(dist_state.pid, comm)
     alive = pid >= 0
     out_x = np.zeros((n_global, 3), np.float32)
     out_v = np.zeros((n_global, 3), np.float32)
-    out_x[pid[alive]] = _slots(dist_state.x)[alive]
-    out_v[pid[alive]] = _slots(dist_state.v)[alive]
+    out_x[pid[alive]] = _slots(dist_state.x, comm)[alive]
+    out_v[pid[alive]] = _slots(dist_state.v, comm)[alive]
     if dist_state.rho is None:
         return CollectedState(x=out_x, v=out_v, rho=None)
     out_rho = np.zeros(n_global, np.float32)
-    out_rho[pid[alive]] = _slots(dist_state.rho)[alive]
+    out_rho[pid[alive]] = _slots(dist_state.rho, comm)[alive]
     return CollectedState(x=out_x, v=out_v, rho=out_rho)
 
 
-def collect_aux(dist_state, aux, n_global, params=None):
+def collect_aux(dist_state, aux, n_global, params=None, comm=None):
     """Gather a :class:`DistAux`'s per-slot fields to host ``pid`` order:
     numpy ``(rho, p, dudt)``, each ``[n_global]`` (``dudt`` zeros unless
     the step computed the energy).  Absent particles hold ``rho0`` (with
-    ``params``, else 0) and 0."""
-    pid = _slots(dist_state.pid)
+    ``params``, else 0) and 0.  ``comm`` as :func:`collect_state`'s."""
+    pid = _slots(dist_state.pid, comm)
     alive = pid >= 0
     rho0 = float(params.rho0) if params is not None else 0.0
     out_rho = np.full(n_global, rho0, np.float32)
     out_p = np.zeros(n_global, np.float32)
     out_du = np.zeros(n_global, np.float32)
-    out_rho[pid[alive]] = _slots(aux.rho)[alive]
-    out_p[pid[alive]] = _slots(aux.p)[alive]
-    out_du[pid[alive]] = _slots(aux.dudt)[alive]
+    out_rho[pid[alive]] = _slots(aux.rho, comm)[alive]
+    out_p[pid[alive]] = _slots(aux.p, comm)[alive]
+    out_du[pid[alive]] = _slots(aux.dudt, comm)[alive]
     return out_rho, out_p, out_du

@@ -16,10 +16,13 @@ distributed3d`) cuts z too.  A step communicates only
   the y hop of the same step, so a diagonal (corner) mover arrives in
   one step.
 
-As the slab form (:mod:`tpgsd_torch.sph.distributed`), one process
-drives every shard and an exchange is a copy to the receiving shard's
-device, so the step runs in stages, each over every shard before the
-next reads a neighbour's output: the local cells, each halo axis, the
+As the slab form (:mod:`tpgsd_torch.sph.distributed`), each process
+drives its shards of the mesh (every shard, or with one process per
+rank its own) and the exchanges go through
+:class:`~tpgsd_torch.parallel.exchange.Exchange` (a copy to the
+receiving shard's device within a process, a message between
+processes), so the step runs in stages, each over every shard before
+the next reads a neighbour's output: the local cells, each halo axis, the
 density and its owners' exchange, the momentum pass (with the owners'
 surface-tension normals exchanged before the force pass), the
 integration, and each migration hop.  The ends of a non-periodic axis
@@ -42,6 +45,7 @@ in the slab form.
 import numpy as np
 import torch
 
+from ..parallel.exchange import Exchange
 from .cells import CellGrid
 from .cells import wrap_axes as _wrap_axes
 from .distributed import (
@@ -84,39 +88,42 @@ def _block_neighbours(index, shape, axis, ring):
     return at(index[axis] - 1), at(index[axis] + 1)
 
 
-def _halo_axis(cores, axis, neighbours, devices):
+def _halo_axis(cores, axis, neighbours, xchg):
     """One axis of the ordered halo: each of ``cores`` (one tensor a
-    shard, the cell axes unflattened, ``axis`` the tensor axis of the
-    block axis) gains its ``bwd`` neighbour's last layer before and its
-    ``fwd`` neighbour's first layer after (zeros past a non-periodic
-    end) -> the extended tensors."""
+    shard of this process, the cell axes unflattened, ``axis`` the tensor
+    axis of the block axis) gains its ``bwd`` neighbour's last layer
+    before and its ``fwd`` neighbour's first layer after (zeros past a
+    non-periodic end), through ``xchg`` -> the extended tensors."""
+    n = cores[0].shape[axis]
+    got = xchg([{"bwd": a.narrow(axis, n - 1, 1), "fwd": a.narrow(axis, 0, 1)}
+                for a in cores],
+               [dict(zip(("bwd", "fwd"), nb)) for nb in neighbours])
     out = []
-    for d, a in enumerate(cores):
-        n = a.shape[axis]
+    for a, g in zip(cores, got):
         ghosts = []
-        for src, start in zip(neighbours[d], (n - 1, 0)):
-            if src is None:
+        for key in ("bwd", "fwd"):
+            if g[key] is None:
                 shape = list(a.shape)
                 shape[axis] = 1
                 ghosts.append(a.new_zeros(shape))
             else:
-                ghosts.append(cores[src].narrow(axis, start, 1).to(
-                    devices[d], non_blocking=True))
+                ghosts.append(g[key])
         out.append(torch.cat([ghosts[0], a, ghosts[1]], dim=axis))
     return out
 
 
-def _block_halo(cores, dims, neighbours, devices):
-    """The ordered halo of ``[..., c, K]`` tensors (one a shard, ``c``
-    the ``dims`` block's cells, x-major) -> the ``[..., c_ext, K]``
-    extended tensors, contiguous.  ``neighbours[a][d]`` is shard ``d``'s
-    ``(bwd, fwd)`` along decomposed axis ``a``; the innermost decomposed
-    axis goes first, so each later axis carries the earlier ghosts."""
+def _block_halo(cores, dims, neighbours, xchg):
+    """The ordered halo of ``[..., c, K]`` tensors (one a shard of this
+    process, ``c`` the ``dims`` block's cells, x-major) -> the ``[...,
+    c_ext, K]`` extended tensors, contiguous.  ``neighbours[a][d]`` is
+    shard ``d``'s ``(bwd, fwd)`` along decomposed axis ``a``; the
+    innermost decomposed axis goes first, so each later axis carries the
+    earlier ghosts."""
     lead = cores[0].shape[:-2]
     k = cores[0].shape[-1]
     cur = [a.reshape(lead + tuple(dims) + (k,)) for a in cores]
     for axis in reversed(range(len(neighbours))):
-        cur = _halo_axis(cur, len(lead) + axis, neighbours[axis], devices)
+        cur = _halo_axis(cur, len(lead) + axis, neighbours[axis], xchg)
     return [a.reshape(lead + (-1, k)) for a in cur]
 
 
@@ -131,10 +138,13 @@ def _block_core(a, ext_dims, n_dec, axis):
 
 
 def _migrate_axis(rows, axis, neighbours, bounds, ring, lo, period, mig_cap,
-                  devices):
-    """One migration hop along decomposed ``axis``, over every shard.
+                  xchg):
+    """One migration hop along decomposed ``axis``, over every shard of
+    this process (``xchg.local``; ``neighbours`` and ``bounds`` are
+    indexed by the mesh's shard).
 
-    ``rows[d] = (vals [cap, F] float32, pid [cap] int32, overflow)``:
+    ``rows[i] = (vals [cap, F] float32, pid [cap] int32, overflow)``, of
+    shard ``xchg.local[i]``:
     ``vals`` holds x | v | (rho) with the raw coordinate of every
     decomposed axis.  A row whose coordinate left ``bounds[d] = (lo,
     hi)`` of its block goes to the neighbour that way (not past a
@@ -144,7 +154,7 @@ def _migrate_axis(rows, axis, neighbours, bounds, ring, lo, period, mig_cap,
     inserts: returns the new ``rows``, each overflow grown by the
     send-side overflow and the receive-side losses."""
     packs = []
-    for d, (vals, pid, _ovf) in enumerate(rows):
+    for d, (vals, pid, _ovf) in zip(xchg.local, rows):
         alive = pid >= 0
         coord = vals[:, axis]
         go = [alive & (coord < bounds[d][0]), alive & (coord >= bounds[d][1])]
@@ -166,16 +176,14 @@ def _migrate_axis(rows, axis, neighbours, bounds, ring, lo, period, mig_cap,
         keep = torch.where(alive_after[:, None], vals, 0.0)
         packs.append((bufs, (keep, pid_after, alive_after, ovf)))
 
+    # from the bwd neighbour its fwd buffer, from the fwd one its bwd
+    got = xchg([{"bwd": bufs[1], "fwd": bufs[0]} for bufs, _keep in packs],
+               [dict(zip(("bwd", "fwd"), nb)) for nb in neighbours])
     out = []
-    for d, (_vals, _pid, ovf) in enumerate(rows):
-        keep, keep_pid, alive_after, send_ovf = packs[d][1]
-        # from the bwd neighbour its fwd buffer, from the fwd one its bwd
-        recv = [
-            _empty_buffers(keep, keep_pid) if src is None
-            else [b.to(devices[d], non_blocking=True)
-                  for b in packs[src][0][1 - side]]
-            for side, src in enumerate(neighbours[d])
-        ]
+    for (_vals, _pid, ovf), (_bufs, kept), g in zip(rows, packs, got):
+        keep, keep_pid, alive_after, send_ovf = kept
+        recv = [_empty_buffers(keep, keep_pid) if g[key] is None else g[key]
+                for key in ("bwd", "fwd")]
         (vals, pid_out), lost = _insert(
             [keep, keep_pid], alive_after,
             [torch.cat([r[0] for r in recv]), torch.cat([r[1] for r in recv])],
@@ -215,6 +223,8 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
                          % {2: "x and y", 3: "x, y and z"}[n_dec])
     devices = tuple(mesh.devices)
     _check_device_type(devices)
+    xchg = Exchange(mesh)
+    local = xchg.local
     n_sh = len(devices)
     cap = int(capacity)
     mig_cap = int(migrate_cap) if migrate_cap is not None else max(8, cap // 4)
@@ -261,16 +271,18 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
                for d in range(n_sh)] for a in range(n_dec)]
     period = [float(np.float32(cell * dims[a])) for a in range(3)]
     lo_local = [torch.from_numpy(lo_np + offs[d]).to(devices[d])
-                for d in range(n_sh)]
-    lo = _per_device(devices, lambda d: torch.from_numpy(lo_np).to(d))
-    hi = _per_device(devices, lambda d: torch.from_numpy(hi_np).to(d))
-    gravity = _per_device(devices, lambda d: torch.from_numpy(
+                if d in local else None for d in range(n_sh)]
+    lo = _per_device(devices, local, lambda d: torch.from_numpy(lo_np).to(d))
+    hi = _per_device(devices, local, lambda d: torch.from_numpy(hi_np).to(d))
+    gravity = _per_device(devices, local, lambda d: torch.from_numpy(
         np.asarray(params.gravity, np.float32)).to(d))
-    wrapped = _per_device(devices, lambda d: torch.from_numpy(wrap).to(d))
-    sentinel = _sentinels(devices, params, continuity, xsph, compute_energy)
+    wrapped = _per_device(devices, local,
+                          lambda d: torch.from_numpy(wrap).to(d))
+    sentinel = _sentinels(devices, local, params, continuity, xsph,
+                          compute_energy)
 
     def halo(cores):
-        return _block_halo(cores, bdims, neighbours, devices)
+        return _block_halo(cores, bdims, neighbours, xchg)
 
     def core(a, axis=-2):
         return _block_core(a, edims, n_dec, axis)
@@ -279,7 +291,7 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
         """On a ring, the ghost layers across the seam arrived with raw
         coordinates: shift them by -+L (the whole layer, the corner
         columns received from the other axes included)."""
-        for d, e in enumerate(ext):
+        for d, e in zip(local, ext):
             v = e.view(e.shape[:2] + edims + (e.shape[-1],))
             for a in range(n_dec):
                 if not rings[a]:
@@ -291,22 +303,24 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
 
     @torch.inference_mode()
     def step(state, dt=params.dt):
-        _check_state(state, devices, cap, continuity,
+        _check_state(state, [devices[d] for d in local], cap, continuity,
                      "distribute_state_%dd" % n_dec)
+        # every per-shard list below runs over this process's shards:
+        # entry i is shard local[i]
         xs, vs, pids = state.x, state.v, state.pid
         alive = [p >= 0 for p in pids]
-        dts = [dt.to(d, non_blocking=True) if isinstance(dt, torch.Tensor)
-               else dt for d in devices]
+        dts = [dt.to(devices[d], non_blocking=True)
+               if isinstance(dt, torch.Tensor) else dt for d in local]
 
         # stage 1: the local cells and dense tiers [T, F, c, K] of every
         # shard (x | v | (rho) | live)
         cells, dense = [], []
-        for d in range(n_sh):
-            cl = _local_cells(xs[d], alive[d], *bdims, kd, lo_local[d], cell)
-            cols = [xs[d], vs[d]]
+        for i, d in enumerate(local):
+            cl = _local_cells(xs[i], alive[i], *bdims, kd, lo_local[d], cell)
+            cols = [xs[i], vs[i]]
             if continuity:
-                cols.append(state.rho[d][:, None])
-            cols.append(xs[d].new_ones((cap, 1)))
+                cols.append(state.rho[i][:, None])
+            cols.append(xs[i].new_ones((cap, 1)))
             cells.append(cl)
             dense.append(_scatter(torch.cat(cols, dim=1), cl, c, k, n_tiers))
 
@@ -351,9 +365,9 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
                       for f in fields]  # [T, 3, c, K]
             n_ext = halo(n_core)
             del n_core
-            for d, f in enumerate(fields):
-                ns = [torch.where(t[4], n, 0.0) for t, n in zip(f, n_ext[d])]
-                for m, st in zip(mom[d], passes.force(f, ns)):
+            for i, f in enumerate(fields):
+                ns = [torch.where(t[4], n, 0.0) for t, n in zip(f, n_ext[i])]
+                for m, st in zip(mom[i], passes.force(f, ns)):
                     m[..., :3] += st
         energy = ([passes.energy(f) for f in fields] if compute_energy
                   else None)
@@ -361,28 +375,28 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
         # stage 6: the core cells' results as one particle-order gather,
         # and the integration
         new, a2 = [], []
-        for d in range(n_sh):
+        for i, d in enumerate(local):
             cols = []
             for t in range(n_tiers):
-                col = [mom[d][t]]
+                col = [mom[i][t]]
                 if not continuity:
-                    col += [rho_p[d][t][0][..., None],
-                            rho_p[d][t][1][..., None]]
+                    col += [rho_p[i][t][0][..., None],
+                            rho_p[i][t][1][..., None]]
                 if compute_energy:
-                    col.append(energy[d][t][..., None])
+                    col.append(energy[i][t][..., None])
                 cols.append(torch.cat(col, dim=-1))
-            out = _gather(core(torch.cat(cols, dim=1), 0), cells[d],
+            out = _gather(core(torch.cat(cols, dim=1), 0), cells[i],
                           local_grid, kd, sentinel[d])
-            new.append(integrate(d, out, xs[d], vs[d], pids[d], alive[d],
-                                 state.rho[d] if continuity else None,
-                                 dts[d], a2))
+            new.append(integrate(d, out, xs[i], vs[i], pids[i], alive[i],
+                                 state.rho[i] if continuity else None,
+                                 dts[i], a2))
         del mom, fields, tiers, ext, rho_p
 
         # stage 7: one migration hop a decomposed axis, x first
         rows = [(vals, pid, 0) for vals, pid, _aux in new]
         for a in range(n_dec):
             rows = _migrate_axis(rows, a, neighbours[a], bounds[a], rings[a],
-                                 float(lo_np[a]), period[a], mig_cap, devices)
+                                 float(lo_np[a]), period[a], mig_cap, xchg)
 
         out_x = tuple(vals[:, 0:3].contiguous() for vals, _, _ in rows)
         out_v = tuple(vals[:, 3:6].contiguous() for vals, _, _ in rows)
@@ -502,7 +516,8 @@ def make_adaptive_distributed2d_step_fn(grid, params, mesh, cfl=0.25,
     """CFL-adaptive variant of :func:`make_distributed2d_step_fn`: the
     controller of :func:`~tpgsd_torch.sph.distributed.
     make_adaptive_distributed_step_fn` over the blocks (the maxima meet
-    on the first shard's device; no host sync).
+    on each process's first shard's device and across processes; no host
+    sync with one process).
 
     Returns:
         ``step(state, dt) -> (DistState, DistAux, dt_next)``; at ``dt ==
@@ -528,8 +543,7 @@ def _distribute_blocks(state, grid, mesh, n_dec, capacity):
         block.append(np.clip(((x[:, a] - grid.lo[a]) // width).astype(
             np.int64), 0, shape[a] - 1))
     owner = np.ravel_multi_index(block, shape)
-    return _partition(state._replace(x=x), owner, tuple(mesh.devices),
-                      capacity, "block")
+    return _partition(state._replace(x=x), owner, mesh, capacity, "block")
 
 
 def distribute_state_2d(state, grid, mesh, capacity=None):
