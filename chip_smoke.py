@@ -103,6 +103,24 @@ Gloo staging); the (2, 2) dump cycle through ``ShardedFrameWriter`` and
 process's and ``verify(deep=True)``; the controller killed mid-frame
 (the file reopens at 3 frames); and a one-process NCCL group (the
 wiring only: one GPU allows no NCCL point-to-point).
+Phase 13 terminates the main path and reads what it left: a child
+process (``chip_smoke.py --sigterm-child PATH H``, a mode only this
+script uses) runs the flagship 1M spill summation step through
+``configuration`` and submits a frame every step (position, velocity,
+density, pressure, slength; about 36 MB) through ``AsyncDumpRunner``
+(depth 4) into ``ShardedFrameWriter``; once it has printed ``submitted
+8`` the parent sends SIGTERM.  The package's handler turns the signal
+into ``SystemExit(1)``, so the child must exit with 1 and its runner
+drain: the file passes ``pypgsd.verify(deep=True)``, holds at least 8
+frames and every frame the child submitted, each bit-equal to the same
+step run here, with the kernel launches of that many steps; the drain
+time and the frames written after the signal are printed.  Then the
+port's command line runs on that file as ``python -m tpgsd_torch`` with
+``torch``, ``jax`` and ``tpgsd`` blocked in ``sys.modules``: ``info``
+(the frame count, ``[1003104 x 3] float32``), ``dump``, ``verify`` (OK,
+and CORRUPT on a copy cut inside the last frame's positions) and
+``convert --frames 0:1`` (one ``.vtu`` of 1,003,104 points), each with
+its wall time.
 Every phase raises on failure; the script exits non-zero and prints no
 result line.  It needs a CUDA device and never runs on the CPU, and it
 imports nothing of JAX or of the JAX package ``tpgsd``.
@@ -112,7 +130,8 @@ entry per kernel role (``slab_launches``: its launches in the 4 silent
 steps a mode of the 1e8 cycle; ``decomp_launches``: in one decomposed
 1M step on 2 shards; ``decomp2d_launches`` / ``decomp3d_launches``: in
 one 1M step of the (2, 2) / (2, 2, 2) block form; ``mp_launches``: in one
-1M step of each form over processes, summed over them); the last line
+1M step of each form over processes, summed over them;
+``sigterm_launches``: in phase 13's terminated run); the last line
 is the run's result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -121,14 +140,17 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+import tpgsd_torch.fl
 import tpgsd_torch.hoomd
 import tpgsd_torch.pypgsd
 from tpgsd_torch import _build
@@ -198,6 +220,7 @@ from tpgsd_torch.sph.step import (
 
 N_1M = 86  # n_side of the 1,003,104-particle dam break
 N_1M_PARTICLES = 1003104
+BOX = np.array([2.0, 1.0, 1.0, 0.0, 0.0, 0.0], np.float32)  # its box
 DIMS_1M, K_1M = (82, 41, 41), 32  # its grid and "auto" capacity
 N_100K = 40  # n_side of the 100,000-particle dam break
 K_WIDE = 128  # the single-tier capacity past the two-tier kernels' 64
@@ -1053,8 +1076,7 @@ def phase_main_path(dev, card, params, path):
         path = os.path.join(tmp, "dam_break.gsd")
         writer = ShardedFrameWriter(
             path, application="tpgsd_torch.chip_smoke", comm=SingleComm(),
-            static={"configuration/box": np.array(
-                [2.0, 1.0, 1.0, 0.0, 0.0, 0.0], np.float32)},
+            static={"configuration/box": BOX},
         )
         print("%s: file handle %s" % (tag, type(writer.file._fh).__name__))
         overflow = []
@@ -3950,6 +3972,263 @@ def phase_processes(dev, card):
     return launches, times
 
 
+# --------------------------------------------------------------------------
+# phase 13: SIGTERM drains the dump; the command line on the card's file
+# --------------------------------------------------------------------------
+
+SIGTERM_STEPS = 20  # the terminated run's steps, a frame each
+SIGTERM_AFTER = 8  # the parent signals once the child printed this frame
+SIGTERM_DEPTH = 4  # frames in flight in the child's dump
+SIGTERM_TIMEOUT_S = 180  # the child is killed past this
+#: runs the port's CLI as ``python -m tpgsd_torch`` does, with torch, JAX
+#: and the JAX package blocked: reading a file needs numpy alone
+CLI_WRAPPER = (
+    "import runpy, sys\n"
+    "for name in ('torch', 'jax', 'tpgsd'):\n"
+    "    sys.modules[name] = None\n"
+    "runpy.run_module('tpgsd_torch', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def sigterm_frame(state, rho, p, slength):
+    """The chunks of one frame of the terminated run."""
+    return {"particles/position": state.x, "particles/velocity": state.v,
+            "particles/density": rho, "particles/pressure": p,
+            "particles/slength": slength}
+
+
+def sigterm_child(path, h):
+    """The run that phase 13 terminates (``chip_smoke.py --sigterm-child
+    PATH H``, started by the parent only): the flagship 1M spill
+    summation step through ``configuration``, a frame every step through
+    the async dump into ``PATH``, ``submitted k`` printed after the k-th
+    submit, until SIGTERM arrives; the package's handler turns it into
+    ``SystemExit(1)`` and the runner drains on the way out.  Prints the
+    frames written when the signal arrived and when the runner closed,
+    and the launch counts of the run."""
+    dev = torch.device("cuda", 0)
+    _build.load()
+    step, state = configuration("spill", N_1M, dev, "summation")
+    slength = torch.full((state.x.shape[0],), h, device=dev)
+    ops.reset_launch_counts()
+    writer = ShardedFrameWriter(path, application="tpgsd_torch.chip_smoke",
+                                comm=SingleComm(),
+                                static={"configuration/box": BOX})
+    dump = AsyncDumpRunner(writer, depth=SIGTERM_DEPTH)
+    try:
+        with dump:
+            try:
+                for k in range(1, SIGTERM_STEPS + 1):
+                    state, (rho, p, _ov) = step(state)
+                    dump.submit(sigterm_frame(state, rho, p, slength),
+                                step=k - 1)
+                    print("submitted %d" % k, flush=True)
+                # a signal later than the last frame still finds the run
+                time.sleep(SIGTERM_TIMEOUT_S)
+            except SystemExit:
+                print("signalled: %d frames written" % dump.stats.frames,
+                      flush=True)
+                raise
+    finally:
+        print("closed: %d frames written" % dump.stats.frames, flush=True)
+        print("launches %s" % json.dumps(dict(ops.launch_counts)),
+              flush=True)
+
+
+def frame_arrays(path, frame):
+    """Every chunk of ``frame`` of ``path`` but the static box."""
+    with tpgsd_torch.fl.open(path, "r") as f:
+        return {name: f.read_chunk(frame, name)
+                for name in f.find_matching_chunk_names("")
+                if name != "configuration/box" and f.chunk_exists(frame, name)}
+
+
+def truncated_copy(path, out):
+    """``out``: ``path`` cut in the middle of its last frame's position
+    data; returns the cut."""
+    with tpgsd_torch.fl.open(path, "r") as f:
+        chunk = f._find_chunk(f.nframes - 1, "particles/position")
+        cut = int(chunk["location"]) + 6 * int(chunk["N"])
+    with open(path, "rb") as src, open(out, "wb") as dst:
+        left = cut
+        while left:
+            buf = src.read(min(left, 1 << 26))
+            dst.write(buf)
+            left -= len(buf)
+    return cut
+
+
+def phase_sigterm(dev, card, params):
+    """Phase 13: the 1M flagship run with its dump, in a child process,
+    terminated by SIGTERM once it submitted frame ``SIGTERM_AFTER``: it
+    exits with 1, its file verifies deep and holds every frame it
+    submitted, each bit-equal to the same step run here; then the port's
+    CLI, with torch blocked, on that file.  Returns the child's launches
+    a role."""
+    tag = "phase 13 (SIGTERM)"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="tpgsd_sigterm_")
+    try:
+        path = os.path.join(workdir, "terminated.gsd")
+        with open(os.path.join(workdir, "child.err"), "w+") as err:
+            t_start = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sigterm-child",
+                 path, repr(float(params.h))],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=err, text=True)
+            watchdog = threading.Timer(SIGTERM_TIMEOUT_S, proc.kill)
+            watchdog.start()
+            lines, submitted, t_signal, t_first = [], 0, None, None
+            try:
+                for line in iter(proc.stdout.readline, ""):
+                    lines.append(line.rstrip("\n"))
+                    if line.startswith("submitted "):
+                        submitted = int(line.split()[1])
+                        if t_first is None:
+                            t_first = time.perf_counter()
+                        if submitted == SIGTERM_AFTER and t_signal is None:
+                            proc.send_signal(signal.SIGTERM)
+                            t_signal = time.perf_counter()
+                rc = proc.wait()
+                t_exit = time.perf_counter()
+            finally:
+                watchdog.cancel()
+                proc.stdout.close()
+            err.seek(0)
+            child_err = err.read()
+        said = {line.split(":")[0]: int(line.split()[1]) for line in lines
+                if line.startswith(("signalled:", "closed:"))}
+        if rc != 1 or t_signal is None or "signalled" not in said:
+            raise AssertionError("%s: exit code %r, signal %s, output %s\n%s"
+                                 % (tag, rc, t_signal is not None, lines[-5:],
+                                    child_err[-3000:]))
+        report = tpgsd_torch.pypgsd.verify(path, deep=True)
+        m = report["frames"]
+        if not report["ok"]:
+            raise AssertionError("%s: verify: %s" % (tag, report["errors"]))
+        # a frame is queued before submit returns, so a signal between the
+        # two leaves one frame more than the last line said
+        if not (SIGTERM_AFTER <= m and submitted <= m <= submitted + 1
+                and said["closed"] == m):
+            raise AssertionError(
+                "%s: %d frames in the file, %d submitted, the runner closed at "
+                "%d" % (tag, m, submitted, said["closed"]))
+        child_counts = json.loads(next(
+            line for line in lines if line.startswith("launches "))[9:])
+        per_step = PATHS["summation"]["per_step"]
+        for key, n_per in per_step.items():
+            if not n_per * m <= child_counts.get(key, 0) <= n_per * (m + 1):
+                raise AssertionError("%s: %s launched %d times in the child's "
+                                     "%d steps" % (tag, key,
+                                                   child_counts.get(key, 0), m))
+        print("%s: the child (the 1M spill summation step, a %.1f MB frame "
+              "every step, depth %d) started in %.2f s to its first frame; "
+              "SIGTERM after frame %d, it exited with %d %.3f s later; %d "
+              "frames submitted, %d in the file, %d written after the signal; "
+              "launches %s [%s]"
+              % (tag, report["data_bytes"] / m / 1e6, SIGTERM_DEPTH, t_first - t_start, SIGTERM_AFTER, rc,
+                 t_exit - t_signal, submitted, m,
+                 said["closed"] - said["signalled"],
+                 json.dumps({k: v for k, v in child_counts.items() if v}),
+                 card))
+
+        # the same run here: every frame bit-equal to its step
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step, state = configuration("spill", N_1M, dev, "summation")
+        slength = torch.full((state.x.shape[0],), params.h, device=dev)
+        for i in range(m):
+            state, (rho, p, _ov) = step(state)
+            want = sigterm_frame(state, rho, p, slength)
+            got = frame_arrays(path, i)
+            if int(got.pop("configuration/step")[0]) != i:
+                raise AssertionError("%s: frame %d's step" % (tag, i))
+            for name, value in want.items():
+                if not np.array_equal(got[name], value.cpu().numpy()):
+                    raise AssertionError("%s: frame %d's %s differs from the "
+                                         "run here" % (tag, i, name))
+        counts = dict(ops.launch_counts)
+        for key, value in counts.items():
+            if value != per_step.get(key, 0) * m:
+                raise AssertionError("%s: %s launched %d times in %d steps "
+                                     "here" % (tag, key, value, m))
+        print("%s: %d frames, each bit-equal to the same step run here "
+              "(position, velocity, density, pressure, slength); "
+              "pypgsd.verify(deep=True) ok, %.1f MB [%s]"
+              % (tag, m, report["file_size"] / 1e6, card))
+        phase_cli(path, m, workdir, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("phase 13 ran %.1f s [%s]" % (time.perf_counter() - t_phase, card))
+    return child_counts
+
+
+def phase_cli(path, m, workdir, card):
+    """Phase 13: the port's CLI with torch, JAX and the JAX package
+    blocked on the terminated run's file: ``info``, ``dump``, ``verify``
+    (intact and truncated inside the last frame's data) and ``convert``
+    of frame 0; the host's wall time of each."""
+    tag = "phase 13 (CLI)"
+    times = {}
+
+    def run(name, args, want_rc):
+        """stdout's lines of ``python -m tpgsd_torch ARGS``, blocked."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_WRAPPER] + args,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        times[name] = time.perf_counter() - t0
+        if proc.returncode != want_rc:
+            raise AssertionError("%s: %s exited with %d\n%s\n%s" % (
+                tag, name, proc.returncode, proc.stdout[-2000:],
+                proc.stderr[-2000:]))
+        return proc.stdout.splitlines()
+
+    info = run("info", ["info", path], 0)
+    position = [line for line in info if "particles/position" in line]
+    if ("frames: %d" % m) not in info or len(position) != 1 or not (
+            position[0].endswith("[%d x 3] float32" % N_1M_PARTICLES)):
+        raise AssertionError("%s: info said %s" % (tag, info))
+    dumped = run("dump", ["dump", path, "-n", "particles/density", "-f", "0"],
+                 0)
+    if not dumped or not dumped[0].startswith("["):
+        raise AssertionError("%s: dump said %s" % (tag, dumped))
+    verified = run("verify", ["verify", path], 0)
+    if verified[-1] != "OK":
+        raise AssertionError("%s: verify said %s" % (tag, verified))
+    cut_path = os.path.join(workdir, "truncated.gsd")
+    cut = truncated_copy(path, cut_path)
+    corrupt = run("verify (truncated)", ["verify", cut_path], 1)
+    os.remove(cut_path)
+    if not corrupt[-1].startswith("CORRUPT ("):
+        raise AssertionError("%s: verify of the cut file said %s"
+                             % (tag, corrupt))
+    outdir = os.path.join(workdir, "vtu")
+    run("convert", ["convert", path, "--frames", "0:1", "-o", outdir], 0)
+    written = sorted(os.listdir(outdir))
+    if len(written) != 1:
+        raise AssertionError("%s: convert wrote %s" % (tag, written))
+    with open(os.path.join(outdir, written[0])) as f:
+        head = f.read(4096)
+    if ('NumberOfPoints="%d"' % N_1M_PARTICLES) not in head:
+        raise AssertionError("%s: %s has no NumberOfPoints=\"%d\""
+                             % (tag, written[0], N_1M_PARTICLES))
+    print("%s: python -m tpgsd_torch with torch, jax and tpgsd blocked: info "
+          "(frames: %d, [%d x 3] float32), dump, verify OK, verify of a copy "
+          "cut at byte %d (inside the last frame's positions) %s, convert "
+          "--frames 0:1 (%s, %.1f MB, NumberOfPoints=\"%d\") [%s]"
+          % (tag, m, N_1M_PARTICLES, cut, corrupt[-1], written[0],
+             os.path.getsize(os.path.join(outdir, written[0])) / 1e6,
+             N_1M_PARTICLES, card))
+    print("%s: wall s a subcommand on a %.1f MB file (host clock, the "
+          "interpreter's start included): %s [%s]"
+          % (tag, os.path.getsize(path) / 1e6,
+             ", ".join("%s %.3f" % kv for kv in times.items()), card))
+
+
 def check_no_reference_modules():
     """The run must not have loaded JAX or the JAX package."""
     loaded = sorted(
@@ -4038,6 +4317,7 @@ def main():
     block_counts, _block_ms = phase_blocks(dev, card)
     print("phase 11 ran %.1f s [%s]" % (time.perf_counter() - t11, card))
     mp_counts, _mp_times = phase_processes(dev, card)
+    sigterm_counts = phase_sigterm(dev, card, params)
     check_no_reference_modules()
     print("no jax, jaxlib or tpgsd module was imported")
     print("chip_smoke.py ran %.1f s (wall, the kernels' build included)"
@@ -4061,6 +4341,8 @@ def main():
             # the processes (phase 12)
             "mp_launches": {form: mp_counts[form].get(key, 0)
                             for form in mp_counts},
+            # and in phase 13's terminated run of the 1M step (the child)
+            "sigterm_launches": sigterm_counts.get(key, 0),
             "max_abs_err": errs[key]["abs"],
             "max_scaled_err": errs[key]["scaled"],
             "ms": times[key]["ms"],
@@ -4085,4 +4367,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sigterm-child"]:
+        sigterm_child(sys.argv[2], float(sys.argv[3]))
+    else:
+        main()

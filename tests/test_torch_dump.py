@@ -221,5 +221,15 @@ def test_port_sources_import_no_jax_and_no_jax_package_modules():
     # the multi-process tests spawn, are scanned too
     for module in ("comm", "compose_io", "exchange", "launch", "worker"):
         assert REPO / "tpgsd_torch" / "parallel" / (module + ".py") in sources
+    # and the command line, which with the file layers it reads through
+    # imports no torch either
+    assert REPO / "tpgsd_torch" / "__main__.py" in sources
     offending = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offending == []
+    numpy_only = [REPO / "tpgsd_torch" / name for name in (
+        "__init__.py", "__main__.py", "fl.py", "hoomd.py", "pypgsd.py",
+        "vtu.py", "version.py", "format/structs.py", "format/validate.py",
+        "io/backend.py", "io/native/__init__.py", "utils/trace.py")]
+    torch_import = re.compile(r"^\s*(import|from)\s+torch(\.|\s|$)", re.M)
+    assert [str(p) for p in numpy_only
+            if torch_import.search(p.read_text())] == []

@@ -11,11 +11,14 @@ write site).  tpgsd replaces it with a *runtime* recorder:
   duration; the dump runtime records per-frame timings;
 * events carry a monotonic timestamp and the process index, so
   multi-host traces merge by sort;
-* spans are also ``torch.profiler.record_function`` ranges, so a
-  ``torch.profiler`` trace shows the I/O phases beside the device
-  timeline.
+* in a process that has loaded torch, spans are also
+  ``torch.profiler.record_function`` ranges, so a ``torch.profiler``
+  trace shows the I/O phases beside the device timeline.
 
-This is the port's copy of ``tpgsd/utils/trace.py``.
+This is the port's copy of ``tpgsd/utils/trace.py``.  Like the file
+layers that call it, it imports only the standard library: torch is
+taken from ``sys.modules`` where a span or an event needs it, so the
+file stack and the command line run on a machine without torch.
 
 Overhead when disabled: one attribute check per call site.
 """
@@ -25,13 +28,20 @@ import os
 import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
-import torch
+
+def _torch():
+    """The torch module if this process has loaded it, else None."""
+    return sys.modules.get("torch")
 
 
 def _process_index():
-    """Rank of this process in ``torch.distributed`` (0 outside it)."""
+    """Rank of this process in ``torch.distributed`` (0 outside it, and
+    in a process without torch)."""
+    torch = _torch()
+    if torch is None:
+        return 0
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
@@ -92,13 +102,17 @@ class TraceRecorder:
 
     @contextmanager
     def span(self, kind, **fields):
-        """Timed span; also a ``torch.profiler.record_function`` range."""
+        """Timed span; also a ``torch.profiler.record_function`` range
+        where torch is loaded."""
         if not self.enabled:
             yield
             return
+        torch = _torch()
+        rng = (nullcontext() if torch is None
+               else torch.profiler.record_function("tpgsd:" + kind))
         t0 = time.monotonic()
         try:
-            with torch.profiler.record_function("tpgsd:" + kind):
+            with rng:
                 yield
         finally:
             self.record(kind, seconds=round(time.monotonic() - t0, 6), **fields)
