@@ -1100,11 +1100,9 @@ def phase_main_path(dev, card, params, path):
         stats = dump.stats
         print(
             "%s: %d steps at N=%d with %d frames of %d chunks in %.3f s (%.3f "
-            "ms/step incl. dump), dump %.1f MB/s effective, %.1f MB/s while "
-            "writing, overlap %.3f [%s]"
+            "ms/step incl. dump), dump %.1f MB/s while writing [%s]"
             % (tag, n_steps, n, stats.frames, len(path_of["chunks"]), wall,
-               1e3 * wall / n_steps, stats.effective_mb_s, stats.write_mb_s,
-               stats.overlap_efficiency, card)
+               1e3 * wall / n_steps, stats.write_mb_s, card)
         )
         total_overflow = int(torch.stack(overflow).sum())
         if total_overflow != 0:
@@ -2037,11 +2035,9 @@ def phase_rollout(dev, card, params, mode, cfl=0.25):
         stats = channel.stats
         print("%s: scan_simulate_adaptive, %d steps with a frame every %dth "
               "(%d frames of %d chunks) in %.3f s (%.4f ms/step incl. dump), "
-              "dump %.1f MB/s effective, %.1f MB/s while writing, overlap "
-              "%.3f [%s]"
+              "dump %.1f MB/s while writing [%s]"
               % (tag, N_ROLLOUT, DUMP_EVERY, stats.frames, len(names), wall,
-                 1e3 * wall / N_ROLLOUT, stats.effective_mb_s,
-                 stats.write_mb_s, stats.overlap_efficiency, card))
+                 1e3 * wall / N_ROLLOUT, stats.write_mb_s, card))
         frame_steps = list(range(0, N_ROLLOUT, DUMP_EVERY))
         with tpgsd_torch.hoomd.open(path, mode="r") as traj:
             steps = [int(f.configuration.step) for f in traj]
@@ -2537,12 +2533,11 @@ def phase_cycle_1e8(dev, card):
               "scatters and %.3f s of frame hand-off to the writer on the "
               "emission thread; %.4g GB copied device-to-host "
               "(%d whole windows of %d rows), writer %.1f MB/s while "
-              "writing, %.1f MB/s effective, overlap %.3f [%s]"
+              "writing [%s]"
               % (walls[0], walls[1], walls[2], silent_ms, flush_ms,
                  chan.emit_host_seconds, chan.handoff_seconds,
                  chan.d2h_bytes / 1e9, slabs,
-                 -(-3 * n // slabs), stats.write_mb_s, stats.effective_mb_s,
-                 stats.overlap_efficiency, card))
+                 -(-3 * n // slabs), stats.write_mb_s, card))
         del state
         t0 = time.perf_counter()
         resumed, step_no, writer, _ = resume(path, comm=SingleComm(),

@@ -262,10 +262,8 @@ def main(argv=None):
 
     s = channel.stats
     print(
-        "dumped %d frames, %.1f MB: writer %.1f MB/s, overlapped %.1f MB/s "
-        "(overlap efficiency %.0f%%)"
-        % (s.frames, s.bytes / 1e6, s.write_mb_s, s.effective_mb_s,
-           100 * s.overlap_efficiency)
+        "dumped %d frames, %.1f MB: writer %.1f MB/s while writing"
+        % (s.frames, s.bytes / 1e6, s.write_mb_s)
     )
 
     with tpgsd_torch.hoomd.open(args.out, mode="r") as traj:

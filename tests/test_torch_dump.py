@@ -83,9 +83,10 @@ def test_dump_stats_are_populated(tmp_path):
     s = dump.stats
     assert s.frames == 4
     assert s.bytes == 4 * (1000 * 3 * 4 + 1000 * 4)
-    assert s.write_seconds > 0 and s.wall_seconds >= s.write_seconds
-    assert s.write_mb_s > 0 and s.effective_mb_s > 0
-    assert 0 < s.overlap_efficiency <= 1
+    assert s.write_seconds > 0
+    assert s.write_mb_s == pytest.approx(s.bytes / 1e6 / s.write_seconds)
+    for gone in ("effective_mb_s", "overlap_efficiency", "wall_seconds"):
+        assert not hasattr(s, gone)
 
 
 class _FailingWriter:

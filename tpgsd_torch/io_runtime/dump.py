@@ -15,16 +15,29 @@ waits on; a CPU tensor by a clone.  Work queued on the stream after
 ``submit`` cannot change the frame.  The writer receives numpy arrays
 (already on the host, so ``tpgsd_torch.parallel`` makes no further
 device copy).
+
+With the tracer on (:func:`tpgsd_torch.utils.get_tracer`) each frame
+records ``dump.submit`` inside a ``dump.submit`` range on the caller's
+thread, so the snapshot's copy lies under it in a ``torch.profiler``
+trace; the writer thread records ``dump.copied`` once the frame is on
+the host and ``dump.written`` once ``write_frame`` has returned
+(``step`` each).  A ``record_function`` range opened on the writer
+thread does not reach the profiler's events, so the writer is seen
+only through these events and ``fl``'s spans.  ``dump.copied - dump.submit`` is the frame's
+wait in the queue and for its copy; ``dump.written - dump.copied`` its
+write.
 """
 
 import logging
 import queue
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..utils.trace import get_tracer
 
 logger = logging.getLogger("tpgsd_torch.io_runtime")
 
@@ -33,28 +46,19 @@ _SENTINEL = object()
 
 @dataclass
 class DumpStats:
-    """Aggregate dump metrics (mirrors ``tpgsd.io_runtime.DumpStats``)."""
+    """Aggregate dump metrics (``tpgsd.io_runtime.DumpStats`` without its
+    wall-time figures: the per-frame trace events say when each frame was
+    submitted, copied and written)."""
 
     frames: int = 0
     bytes: int = 0
     write_seconds: float = 0.0  # writer-thread busy time
-    wall_seconds: float = 0.0  # first submit -> close
-    _t_first: float = field(default=0.0, repr=False)
 
     @property
     def write_mb_s(self):
-        """MB/s sustained by the writer thread while busy."""
+        """MB/s of the writer thread while busy: the wait for the
+        snapshot's copy, the writer's Python and its file writes."""
         return self.bytes / 1e6 / self.write_seconds if self.write_seconds else 0.0
-
-    @property
-    def effective_mb_s(self):
-        """MB/s over the whole overlapped wall time."""
-        return self.bytes / 1e6 / self.wall_seconds if self.wall_seconds else 0.0
-
-    @property
-    def overlap_efficiency(self):
-        """Fraction of wall time the writer was busy (1.0 = I/O-bound)."""
-        return self.write_seconds / self.wall_seconds if self.wall_seconds else 0.0
 
 
 def _snapshot(value, owned=False):
@@ -99,7 +103,7 @@ class AsyncDumpRunner:
             for i in range(steps):
                 state, (rho, p, _) = step(state)
                 dump.submit({"particles/position": state.x}, step=i)
-        print(dump.stats.effective_mb_s)
+        print(dump.stats.write_mb_s)
     """
 
     def __init__(self, writer, depth=2, own_writer=True):
@@ -119,6 +123,7 @@ class AsyncDumpRunner:
         # error: queued frames past the failure are consumed and discarded
         # (each still task_done-ed) so flush() and close() can never hang
         # on a dead writer; the error surfaces at the next call.
+        tracer = get_tracer()
         while True:
             item = self._queue.get()
             if item is _SENTINEL:
@@ -129,7 +134,9 @@ class AsyncDumpRunner:
                     continue
                 t0 = time.perf_counter()
                 chunks = {name: _host_array(s) for name, s in snaps.items()}
+                tracer.record("dump.copied", step=step)
                 self._writer.write_frame(chunks, step=step)
+                tracer.record("dump.written", step=step)
                 self.stats.write_seconds += time.perf_counter() - t0
                 self.stats.frames += 1
                 self.stats.bytes += sum(a.nbytes for a in chunks.values())
@@ -160,11 +167,12 @@ class AsyncDumpRunner:
         if self._closed:
             raise ValueError("runner is closed")
         self._check_error()
-        if not self.stats._t_first:
-            self.stats._t_first = time.perf_counter()
-        snaps = {name: _snapshot(value, owned)
-                 for name, value in chunks.items()}
-        self._queue.put((snaps, step))
+        tracer = get_tracer()
+        with tracer.range("dump.submit"):
+            tracer.record("dump.submit", step=step)
+            snaps = {name: _snapshot(value, owned)
+                     for name, value in chunks.items()}
+            self._queue.put((snaps, step))
         self._check_error()
 
     def flush(self):
@@ -181,8 +189,6 @@ class AsyncDumpRunner:
         if self._thread.is_alive():
             self._queue.put(_SENTINEL)
         self._thread.join()
-        if self.stats._t_first:
-            self.stats.wall_seconds = time.perf_counter() - self.stats._t_first
         if self._own_writer:
             self._writer.close()
         if self._error is not None:

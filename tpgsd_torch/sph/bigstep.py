@@ -45,6 +45,7 @@ integrated rows to the host while later slabs compute
 import numpy as np
 import torch
 
+from ..utils.trace import get_tracer
 from . import ops
 from .cells import CellGrid, cell_id, sorted_runs
 from .kernels import WendlandC2
@@ -223,6 +224,7 @@ def make_slab_step_fn(
     kt = 2 * k if spill else k  # retained slots per cell
 
     pairs = ops.pair_ops(use_kernels, spill, continuity)
+    phase = get_tracer().range
 
     lo_np = np.asarray(grid.lo, np.float32)
     hi_np = lo_np + grid.cell_size * np.asarray(grid.dims, np.float32)
@@ -259,10 +261,9 @@ def make_slab_step_fn(
         return torch.cat([acc, col3[..., None], col4[..., None],
                           mask[..., None].to(acc.dtype)], dim=-1)
 
-    def slab_bundle(vs_t, st, ct):
+    def slab_bundle(tiers):
         """The ``[c_ext, kt, 6]`` per-slot results of one slab's extended
-        range (``st``/``ct``: its cells' first sorted rows and counts)."""
-        tiers = _slab_tiers(vs_t, st, ct, k, spill)
+        range from its :func:`_slab_tiers`."""
         soa_a, m_a = tiers[0]
         if spill:
             soa_b, m_b = tiers[1]
@@ -325,58 +326,74 @@ def make_slab_step_fn(
     @torch.inference_mode()
     def step(state, dump=None):
         check(state, dump)
+        with phase("slab.step"):
+            return slabs(state, dump)
+
+    def slabs(state, dump):
+        """The step inside ``slab.step``: the ranges ``slab.sort``, then
+        ``slab.tiers``, ``slab.pairs`` and ``slab.window`` a slab, then
+        ``slab.finish``."""
         emit = slab_emit is not None and bool(dump.emit)
         x, v = state.x, state.v
         n = x.shape[0]
         w_rows = int(window) if window else -(-3 * n // S)
 
-        order, cid_pad, slot_pad, vs_t, starts_ext, counts_ext, cell_ovf = \
-            _sorted_rows(state, grid, kt, continuity)
-        if emit:
-            pid_pad = torch.cat([order, order.new_full((1,), -1)]).int()
-        window_rows = torch.arange(w_rows, dtype=torch.int64, device=dev)
-
-        out = x.new_zeros((n + 1, 6))  # sorted order; row n is discarded
-        win_ovf = torch.zeros((), dtype=torch.int64, device=dev)
+        with phase("slab.sort"):  # and the sorted-order buffers
+            order, cid_pad, slot_pad, vs_t, starts_ext, counts_ext, \
+                cell_ovf = _sorted_rows(state, grid, kt, continuity)
+            if emit:
+                pid_pad = torch.cat([order, order.new_full((1,), -1)]).int()
+            window_rows = torch.arange(w_rows, dtype=torch.int64, device=dev)
+            out = x.new_zeros((n + 1, 6))  # sorted order; row n is discarded
+            win_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         for s in range(S):
             c0e = s * nxl * nynz  # the slab's extended range in starts_ext
-            bundle = slab_bundle(vs_t, starts_ext[c0e:c0e + c_ext],
-                                 counts_ext[c0e:c0e + c_ext])
-            p0 = starts_ext[c0e + core0]  # the slab's first sorted row
-            rows = torch.clamp(p0 + window_rows, max=n)
-            cw = cid_pad[rows] - (s * nxl - _PAD) * nynz
-            sw = slot_pad[rows]
-            flat = (torch.clamp(cw, 0, c_ext - 1) * kt
-                    + torch.clamp(sw, 0, kt - 1))
-            win = bundle.reshape(-1, 6)[flat]
-            # dropped (cell-overflow) particles: the clamped gather read a
-            # live slot, so zero their rows (the global step's sentinel)
-            win = torch.where((sw < kt)[:, None], win, 0.0)
-            out.index_copy_(0, rows, win)
-            rows_s = starts_ext[c0e + core0 + nxl * nynz] - p0
-            win_ovf += torch.clamp(rows_s - w_rows, min=0)
-            if emit:
-                pids = pid_pad[rows]
-                xvr = vs_t[:, rows]
-                fixed = (pids >= 0) & (pids < n_fixed) if n_fixed > 0 else None
-                xw, vw, rho_w, p_w = integrate(
-                    xvr[:3].t(), xvr[3:6].t(), win, fixed,
-                    rho_cur=xvr[6] if continuity else None,
-                )
-                payload = torch.cat([xw, vw, rho_w[:, None], p_w[:, None]],
-                                    dim=-1)
-                dump.pipe.submit(slab_emit, dump.step, s, p0, rows_s, pids,
-                                 payload)
+            with phase("slab.tiers"):
+                tiers = _slab_tiers(vs_t, starts_ext[c0e:c0e + c_ext],
+                                    counts_ext[c0e:c0e + c_ext], k, spill)
+            with phase("slab.pairs"):
+                bundle = slab_bundle(tiers)
+            del tiers
+            with phase("slab.window"):
+                p0 = starts_ext[c0e + core0]  # the slab's first sorted row
+                rows = torch.clamp(p0 + window_rows, max=n)
+                cw = cid_pad[rows] - (s * nxl - _PAD) * nynz
+                sw = slot_pad[rows]
+                flat = (torch.clamp(cw, 0, c_ext - 1) * kt
+                        + torch.clamp(sw, 0, kt - 1))
+                win = bundle.reshape(-1, 6)[flat]
+                # dropped (cell-overflow) particles: the clamped gather read
+                # a live slot, so zero their rows (the global step's
+                # sentinel)
+                win = torch.where((sw < kt)[:, None], win, 0.0)
+                out.index_copy_(0, rows, win)
+                rows_s = starts_ext[c0e + core0 + nxl * nynz] - p0
+                win_ovf += torch.clamp(rows_s - w_rows, min=0)
+                if emit:
+                    pids = pid_pad[rows]
+                    xvr = vs_t[:, rows]
+                    fixed = ((pids >= 0) & (pids < n_fixed) if n_fixed > 0
+                             else None)
+                    xw, vw, rho_w, p_w = integrate(
+                        xvr[:3].t(), xvr[3:6].t(), win, fixed,
+                        rho_cur=xvr[6] if continuity else None,
+                    )
+                    payload = torch.cat([xw, vw, rho_w[:, None],
+                                         p_w[:, None]], dim=-1)
+                    dump.pipe.submit(slab_emit, dump.step, s, p0, rows_s,
+                                     pids, payload)
         del vs_t, cid_pad, slot_pad, bundle
 
-        # the inverse permutation as a scatter of the sorted rows
-        out_p = out.new_empty((n, 6))
-        out_p.index_copy_(0, order, out[:n])
-        del out
-        fixed = torch.arange(n, device=dev) < n_fixed if n_fixed > 0 else None
-        x_new, v_new, rho, p = integrate(
-            x, v, out_p, fixed, rho_cur=state.rho if continuity else None
-        )
+        with phase("slab.finish"):
+            # the inverse permutation as a scatter of the sorted rows
+            out_p = out.new_empty((n, 6))
+            out_p.index_copy_(0, order, out[:n])
+            del out
+            fixed = (torch.arange(n, device=dev) < n_fixed if n_fixed > 0
+                     else None)
+            x_new, v_new, rho, p = integrate(
+                x, v, out_p, fixed, rho_cur=state.rho if continuity else None
+            )
         return (
             SPHState(x=x_new, v=v_new, rho=rho if continuity else None),
             (rho, p, cell_ovf, win_ovf.to(torch.int32)),

@@ -46,6 +46,7 @@ from .cells import (
     wrap_axes,
 )
 from .kernels import WendlandC2
+from ..utils.trace import get_tracer
 
 
 class SPHParams(NamedTuple):
@@ -833,79 +834,104 @@ def make_step_fn(
     # the kernels (the ghost halo for ``wrap``) or the plain passes (the
     # wrapped table and minimum image), on the layout and mode
     pairs = ops.pair_ops(use_kernels, spill, continuity)
+    phase = get_tracer().range
+
+    def step_fn(body):
+        """The step of ``body(state, dt)``: the state checked, under
+        ``torch.inference_mode()``, inside the ``step`` range whose
+        children the body opens (``step.cells``, ``step.density``,
+        ``step.momentum``, ``step.surface_tension``, ``step.finish``)."""
+
+        @torch.inference_mode()
+        def run(state, dt=params.dt):
+            _check(state)
+            with phase("step"):
+                return body(state, dt)
+
+        run.resolved = resolved
+        return run
 
     if spill and continuity:
 
-        @torch.inference_mode()
-        def step_continuity_spill(state, dt=params.dt):
-            _check(state)
+        @step_fn
+        def step_continuity_spill(state, dt):
             x, v, rho = state.x, state.v, state.rho
-            cells, sp = build_cells_spill(x, grid, k)
-            # one fused 7-column layout gather per tier (x | v | rho)
-            xvr = torch.cat([x, v, rho[:, None]], dim=-1)
-            soa_a = scatter_to_cells_soa(xvr, cells, grid)
-            soa_b = scatter_to_cells_soa(xvr, cells, grid, slot_base=k, capacity=k)
-            rho_a, p_a = finish_rho(soa_a[6], cells.mask)
-            rho_b, p_b = finish_rho(soa_b[6], sp.mask)
-            out_a, out_b = pairs.momentum(
-                soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
-                soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
-                grid, params, kernel=kernel, delta_sph=delta_sph,
-                wrap_axes=wrap, xsph=xsph > 0,
-            )  # [C, K, 4 (+3 xsph)]
+            with phase("step.cells"):
+                cells, sp = build_cells_spill(x, grid, k)
+                # one fused 7-column layout gather per tier (x | v | rho)
+                xvr = torch.cat([x, v, rho[:, None]], dim=-1)
+                soa_a = scatter_to_cells_soa(xvr, cells, grid)
+                soa_b = scatter_to_cells_soa(xvr, cells, grid, slot_base=k,
+                                             capacity=k)
+            with phase("step.density"):  # the carried density's pressure
+                rho_a, p_a = finish_rho(soa_a[6], cells.mask)
+                rho_b, p_b = finish_rho(soa_b[6], sp.mask)
+            with phase("step.momentum"):
+                out_a, out_b = pairs.momentum(
+                    soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
+                    soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
+                    grid, params, kernel=kernel, delta_sph=delta_sph,
+                    wrap_axes=wrap, xsph=xsph > 0,
+                )  # [C, K, 4 (+3 xsph)]
             if surface_tension > 0:
-                st_a, st_b = pairs.surface_tension(
-                    soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b, sp.mask,
-                    grid, params, surface_tension, kernel=kernel,
-                    wrap_axes=wrap,
-                )
-                # added in place to the acceleration columns
-                out_a[..., :3] += st_a
-                out_b[..., :3] += st_b
-            out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
-            return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
+                with phase("step.surface_tension"):
+                    st_a, st_b = pairs.surface_tension(
+                        soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b,
+                        sp.mask, grid, params, surface_tension,
+                        kernel=kernel, wrap_axes=wrap,
+                    )
+                    # added in place to the acceleration columns
+                    out_a[..., :3] += st_a
+                    out_b[..., :3] += st_b
+            with phase("step.finish"):
+                out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
+                return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
 
-        step_continuity_spill.resolved = resolved
         return step_continuity_spill
 
     if spill:
 
-        @torch.inference_mode()
-        def step_spill(state, dt=params.dt):
-            _check(state)
+        @step_fn
+        def step_spill(state, dt):
             x, v = state.x, state.v
-            cells, sp = build_cells_spill(x, grid, k)
-            xv = torch.cat([x, v], dim=-1)
-            soa_a = scatter_to_cells_soa(xv, cells, grid)
-            soa_b = scatter_to_cells_soa(xv, cells, grid, slot_base=k, capacity=k)
-            rho_a, rho_b = pairs.density(
-                soa_a[:3], cells.mask, soa_b[:3], sp.mask, grid, params,
-                kernel=kernel, wrap_axes=wrap,
-            )
-            rho_a, p_a = finish_rho(rho_a, cells.mask)
-            rho_b, p_b = finish_rho(rho_b, sp.mask)
-            acc_a, acc_b = pairs.momentum(
-                soa_a[:3], soa_a[3:], rho_a, p_a, cells.mask,
-                soa_b[:3], soa_b[3:], rho_b, p_b, sp.mask,
-                grid, params, kernel=kernel, wrap_axes=wrap, xsph=xsph > 0,
-            )
-            if surface_tension > 0:
-                st_a, st_b = pairs.surface_tension(
-                    soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b, sp.mask,
-                    grid, params, surface_tension, kernel=kernel,
-                    wrap_axes=wrap,
+            with phase("step.cells"):
+                cells, sp = build_cells_spill(x, grid, k)
+                xv = torch.cat([x, v], dim=-1)
+                soa_a = scatter_to_cells_soa(xv, cells, grid)
+                soa_b = scatter_to_cells_soa(xv, cells, grid, slot_base=k,
+                                             capacity=k)
+            with phase("step.density"):
+                rho_a, rho_b = pairs.density(
+                    soa_a[:3], cells.mask, soa_b[:3], sp.mask, grid, params,
+                    kernel=kernel, wrap_axes=wrap,
                 )
-                acc_a[..., :3] += st_a
-                acc_b[..., :3] += st_b
-            out = to_particles(
-                torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3 (+3 xsph)]
-                torch.cat([rho_a, rho_b], dim=1),
-                torch.cat([p_a, p_b], dim=1),
-                cells,
-            )
-            return _finish(x, v, out, cells.overflow, dt)
+                rho_a, p_a = finish_rho(rho_a, cells.mask)
+                rho_b, p_b = finish_rho(rho_b, sp.mask)
+            with phase("step.momentum"):
+                acc_a, acc_b = pairs.momentum(
+                    soa_a[:3], soa_a[3:], rho_a, p_a, cells.mask,
+                    soa_b[:3], soa_b[3:], rho_b, p_b, sp.mask,
+                    grid, params, kernel=kernel, wrap_axes=wrap,
+                    xsph=xsph > 0,
+                )
+            if surface_tension > 0:
+                with phase("step.surface_tension"):
+                    st_a, st_b = pairs.surface_tension(
+                        soa_a[:3], rho_a, cells.mask, soa_b[:3], rho_b,
+                        sp.mask, grid, params, surface_tension,
+                        kernel=kernel, wrap_axes=wrap,
+                    )
+                    acc_a[..., :3] += st_a
+                    acc_b[..., :3] += st_b
+            with phase("step.finish"):
+                out = to_particles(
+                    torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3 (+3 xsph)]
+                    torch.cat([rho_a, rho_b], dim=1),
+                    torch.cat([p_a, p_b], dim=1),
+                    cells,
+                )
+                return _finish(x, v, out, cells.overflow, dt)
 
-        step_spill.resolved = resolved
         return step_spill
 
     # single tier: the kernels (the self role up to K = 64, the wide
@@ -928,41 +954,47 @@ def make_step_fn(
 
     if continuity:
 
-        @torch.inference_mode()
-        def step_continuity(state, dt=params.dt):
-            _check(state)
+        @step_fn
+        def step_continuity(state, dt):
             x, v, rho = state.x, state.v, state.rho
-            cells = build_cells(x, grid)
-            xvr = scatter_to_cells_soa(
-                torch.cat([x, v, rho[:, None]], dim=-1), cells, grid
-            )
-            m = cells.mask[:c]
-            rho_d, p_d = finish_rho(xvr[6], cells.mask)
-            out4 = momentum(xvr[:3], xvr[3:6], rho_d, p_d, m)
+            with phase("step.cells"):
+                cells = build_cells(x, grid)
+                xvr = scatter_to_cells_soa(
+                    torch.cat([x, v, rho[:, None]], dim=-1), cells, grid
+                )
+                m = cells.mask[:c]
+            with phase("step.density"):  # the carried density's pressure
+                rho_d, p_d = finish_rho(xvr[6], cells.mask)
+            with phase("step.momentum"):
+                out4 = momentum(xvr[:3], xvr[3:6], rho_d, p_d, m)
             if surface_tension > 0:
-                out4[:3] += surface_tension_pass(xvr[:3], rho_d, m)
-            out = gather_bundle(out4.permute(1, 2, 0), cells)
-            return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
+                with phase("step.surface_tension"):
+                    out4[:3] += surface_tension_pass(xvr[:3], rho_d, m)
+            with phase("step.finish"):
+                out = gather_bundle(out4.permute(1, 2, 0), cells)
+                return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
 
-        step_continuity.resolved = resolved
         return step_continuity
 
-    @torch.inference_mode()
-    def step(state, dt=params.dt):
-        _check(state)
+    @step_fn
+    def step(state, dt):
         x, v = state.x, state.v
-        cells = build_cells(x, grid)
-        xv = scatter_to_cells_soa(torch.cat([x, v], dim=-1), cells, grid)
-        dense_x, dense_v = xv[:3], xv[3:]
-        m = cells.mask[:c]
-        rho, p = finish_rho(density(dense_x, m), cells.mask)
-        acc = momentum(dense_x, dense_v, rho, p, m)
+        with phase("step.cells"):
+            cells = build_cells(x, grid)
+            xv = scatter_to_cells_soa(torch.cat([x, v], dim=-1), cells, grid)
+            dense_x, dense_v = xv[:3], xv[3:]
+            m = cells.mask[:c]
+        with phase("step.density"):
+            rho, p = finish_rho(density(dense_x, m), cells.mask)
+        with phase("step.momentum"):
+            acc = momentum(dense_x, dense_v, rho, p, m)
         if surface_tension > 0:
-            acc[:3] += surface_tension_pass(dense_x, rho, m)
-        out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
-        return _finish(x, v, out, cells.overflow, dt)
+            with phase("step.surface_tension"):
+                acc[:3] += surface_tension_pass(dense_x, rho, m)
+        with phase("step.finish"):
+            out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
+            return _finish(x, v, out, cells.overflow, dt)
 
-    step.resolved = resolved
     return step
 
 

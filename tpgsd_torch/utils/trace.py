@@ -1,4 +1,4 @@
-"""Structured runtime tracing for the I/O paths.
+"""Structured runtime tracing for the I/O paths and the step.
 
 The reference's tracing is a compile-time printf flag
 (``PGSD_ACTIVATE_LOGGER``, reference: pgsd/pgsd/pgsd.c:26-27, emitting
@@ -8,19 +8,37 @@ write site).  tpgsd replaces it with a *runtime* recorder:
 * enable with ``TPGSD_TRACE=1`` (stderr lines), ``TPGSD_TRACE=<path>``
   (JSONL file), or programmatically via ``get_tracer().enable(...)``;
 * every file-layer write/read/flush records name, offset, bytes, and
-  duration; the dump runtime records per-frame timings;
-* events carry a monotonic timestamp and the process index, so
-  multi-host traces merge by sort;
+  duration; the dump runtime records three events a frame, each with
+  ``step`` (``dump.submit`` on the caller's thread, ``dump.copied``
+  once the writer thread holds the frame on the host, ``dump.written``
+  once its ``write_frame`` has returned);
+* every event carries ``t_ns``, ``time.time_ns()`` when it was recorded
+  (a span's end), and the process index.  That is the clock of a
+  ``torch.profiler`` trace, whose timestamps are Unix-epoch nanoseconds
+  (``prof.profiler.kineto_results.trace_start_ns()`` is its origin), so
+  an event can be placed on the trace's timeline.  Events of several
+  hosts merge by ``t_ns`` only as far as the hosts' clocks agree;
 * in a process that has loaded torch, spans are also
-  ``torch.profiler.record_function`` ranges, so a ``torch.profiler``
-  trace shows the I/O phases beside the device timeline.
+  ``torch.profiler.record_function`` ranges named ``tpgsd:<kind>``, and
+  :meth:`TraceRecorder.range` opens such a range and records nothing: it
+  marks the phases of the step (``step``, ``step.cells``, ...,
+  ``slab.step``, ``slab.sort``, ...) and the dump's ``dump.submit``,
+  whose host duration means nothing because the launches are
+  asynchronous.  A range opened on a thread other than the one that
+  started the profiler does not reach ``prof.events()``, and neither do
+  that thread's operators: the file spans on the dump's writer thread
+  are seen only through the recorder's own events.  ``TPGSD_TRACE``
+  enables the recorder at import, so with it set every profiler trace
+  of the process holds these ranges (on the CUDA side too): a reader
+  that counts the trace's device operations leaves ``tpgsd:`` names out.
 
 This is the port's copy of ``tpgsd/utils/trace.py``.  Like the file
 layers that call it, it imports only the standard library: torch is
-taken from ``sys.modules`` where a span or an event needs it, so the
-file stack and the command line run on a machine without torch.
+taken from ``sys.modules`` where a span, a range or an event needs it,
+so the file stack and the command line run on a machine without torch.
 
-Overhead when disabled: one attribute check per call site.
+Overhead when disabled: one attribute check per call site; ``range``
+then returns one shared null context.
 """
 
 import json
@@ -29,6 +47,8 @@ import sys
 import threading
 import time
 from contextlib import contextmanager, nullcontext
+
+_NULL = nullcontext()
 
 
 def _torch():
@@ -81,7 +101,8 @@ class TraceRecorder:
     def record(self, kind, **fields):
         if not self.enabled:
             return
-        evt = {"t": time.monotonic(), "kind": kind, "process": _process_index()}
+        evt = {"t_ns": time.time_ns(), "kind": kind,
+               "process": _process_index()}
         evt.update(fields)
         with self._lock:
             if self._keep:
@@ -108,7 +129,7 @@ class TraceRecorder:
             yield
             return
         torch = _torch()
-        rng = (nullcontext() if torch is None
+        rng = (_NULL if torch is None
                else torch.profiler.record_function("tpgsd:" + kind))
         t0 = time.monotonic()
         try:
@@ -116,6 +137,17 @@ class TraceRecorder:
                 yield
         finally:
             self.record(kind, seconds=round(time.monotonic() - t0, 6), **fields)
+
+    def range(self, name):
+        """A ``torch.profiler.record_function("tpgsd:" + name)`` range
+        while the recorder is enabled in a process that has loaded torch;
+        it records no event.  Otherwise one shared null context."""
+        if not self.enabled:
+            return _NULL
+        torch = _torch()
+        if torch is None:
+            return _NULL
+        return torch.profiler.record_function("tpgsd:" + name)
 
 
 _tracer = TraceRecorder()
