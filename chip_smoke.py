@@ -1759,7 +1759,6 @@ def launches_note(key):
 PROFILE_GROUPS = [
     ("pair kernels",
      ("_pairs_kernel", "st_normals_kernel", "st_force_kernel")),
-    ("cummax scan (cell build)", ("scan_innermost_dim_with_indices",)),
     ("radix sort (cell build)", ("RadixSort",)),
     ("cat copies", ("CatArray",)),
     ("index gathers", ("index_elementwise",)),

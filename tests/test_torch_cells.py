@@ -129,6 +129,58 @@ def test_gather_from_cells_matches_reference(case):
     numpy.testing.assert_array_equal(got.numpy(), numpy.asarray(want))
 
 
+def _scan_slot(cid_s):
+    """The reference's slot map, written out: each sorted position less
+    a ``cummax`` of the run starts."""
+    iota = torch.arange(cid_s.shape[0], dtype=torch.int64)
+    boundary = torch.ones_like(cid_s, dtype=torch.bool)
+    boundary[1:] = cid_s[1:] != cid_s[:-1]
+    return iota - torch.cummax(torch.where(boundary, iota, 0), dim=0).values
+
+
+def _run_ids(kind):
+    """``(cid, n_query, live_rows)`` of one pattern of cell ids."""
+    g = torch.Generator().manual_seed(11)
+    if kind == "random":  # cells 40-59 and the draw's gaps stay empty
+        return torch.randint(0, 40, (500,), generator=g), 60, None
+    if kind == "one_cell":
+        return torch.full((300,), 3, dtype=torch.int64), 7, None
+    if kind == "own_cell":
+        return torch.randperm(64, generator=g), 64, None
+    if kind == "single":
+        return torch.tensor([2]), 5, None
+    # a shard's slab: dead slots in the sentinel cell c = n_query - 1
+    c = 30
+    cid = torch.randint(0, c, (400,), generator=g)
+    dead = torch.rand(400, generator=g) < 0.3
+    return torch.where(dead, c, cid), c + 1, c
+
+
+@pytest.mark.parametrize(
+    "kind", ["random", "one_cell", "own_cell", "single", "sentinel"]
+)
+def test_sorted_runs_slot_equals_the_scan(kind):
+    """``sorted_runs`` gathers each slot from its cell's start; the map
+    is the reference's scan, bit for bit, and ``_sorted_slot_map`` hands
+    it on unchanged."""
+    cid, n_query, live_rows = _run_ids(kind)
+    order, cid_s, slot, starts = port.sorted_runs(cid, n_query)
+    numpy.testing.assert_array_equal(
+        order.numpy(), numpy.argsort(cid.numpy(), kind="stable")
+    )
+    assert torch.equal(cid_s, cid[order])
+    assert torch.equal(slot, _scan_slot(cid_s))
+    want_starts = torch.tensor(
+        [int((cid_s < q).sum()) for q in range(n_query)], dtype=torch.int64
+    )
+    assert torch.equal(starts, want_starts)
+    assert all(t.dtype == torch.int64 for t in (order, cid_s, slot, starts))
+    *_, slot_map, starts_map = port._sorted_slot_map(
+        cid, n_query, 8, live_rows=live_rows
+    )
+    assert torch.equal(slot_map, slot) and torch.equal(starts_map, starts)
+
+
 @pytest.mark.parametrize(
     "periodic", [False, True, (True, False, True), (False, False, True)],
     ids=["closed", "periodic", "wrap_xz", "wrap_z"],

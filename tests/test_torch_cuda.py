@@ -8,7 +8,7 @@ the slab step (kernel against plain, silent steps without a host sync,
 a frame streamed through the side stream and the ring), the slab, 2-D
 and 3-D block decompositions (kernel against plain, an adaptive rollout
 without a host sync),
-the launch counts,
+the launch counts, the cell build's runs against the CPU's,
 the operand checks, and the failed-build rule.  Every test here needs an NVIDIA GPU and skips without one; the
 file imports nothing of JAX, so it runs on a machine that has only the
 port's dependencies:
@@ -43,6 +43,7 @@ from tpgsd_torch.sph.cells import (
     build_cells,
     build_cells_spill,
     scatter_to_cells_soa,
+    sorted_runs,
 )
 from tpgsd_torch.sph.step import tait_pressure
 
@@ -1462,3 +1463,18 @@ def test_block_adaptive_rollout_makes_no_host_sync(cuda, form):
     assert float(t) > 0.0
     got = collect_state(out, db.n)
     assert numpy.isfinite(got.x).all()
+
+
+@pytest.mark.cuda
+def test_sorted_runs_on_the_card_equal_the_cpu(cuda):
+    """The cell build's runs at the 1M dam break's shape (1,003,104 ids
+    over 82 x 41 x 41 cells, two thirds of them empty): the card's
+    ``order``, ``slot`` and ``starts`` equal the CPU's."""
+    c = 82 * 41 * 41
+    g = torch.Generator().manual_seed(18)
+    cid = torch.randint(0, c // 3, (1_003_104,), generator=g)
+    want = sorted_runs(cid, c)
+    got = sorted_runs(cid.to(cuda), c)
+    for name, w, o in zip(("order", "cid_s", "slot", "starts"), want, got):
+        assert o.dtype == torch.int64, name
+        assert torch.equal(o.cpu(), w), name

@@ -30,9 +30,8 @@ without emission makes no host sync.
 
 Peak memory is the per-particle arrays plus one slab's planes.
 Per-particle int64 arrays (8 bytes each): the cell ids and the sort's
-``order``, the ``cummax`` of the run starts (values and indices) and the
-slots, and the padded cell ids and slots of the window; ``starts`` and
-``counts`` are int64 per cell.
+``order``, the slots, and the padded cell ids and slots of the window;
+``starts`` and ``counts`` are int64 per cell.
 
 Matches the reference's semantics: summation and continuity density,
 the two-tier spill and the single-tier layouts, ``n_fixed`` and

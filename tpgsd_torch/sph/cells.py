@@ -151,9 +151,16 @@ class SpillCells(NamedTuple):
 def sorted_runs(cid, n_query):
     """Stable sort by cell id and the runs of the sorted order, with no
     map of the dense layout: ``(order, cid_s, slot, starts)``, each
-    int64.  ``slot`` is each sorted particle's (unclamped) slot within
-    its cell (from a ``cummax`` of the run starts, as in the reference)
-    and ``starts`` each cell's first sorted position (``[n_query]``)."""
+    int64.  ``starts`` is each cell's first sorted position
+    (``[n_query]``) and ``slot`` each sorted particle's (unclamped) slot
+    within its cell: its position less its cell's start, one gather of
+    ``starts``.  The reference takes the run starts from a ``cummax``
+    scan instead, the same map, which on the card walks the row almost
+    serially.
+
+    Requires ``0 <= cid < n_query`` (not checked): :func:`cell_id` clips
+    into the grid, and a caller that sorts dead slots into a sentinel
+    cell counts that cell in ``n_query``."""
     n = cid.shape[0]
     dev = cid.device
     cid_s, order = torch.sort(cid, stable=True)
@@ -161,10 +168,7 @@ def sorted_runs(cid, n_query):
         cid_s, torch.arange(n_query, dtype=cid_s.dtype, device=dev)
     )
     iota = torch.arange(n, dtype=torch.int64, device=dev)
-    boundary = torch.ones(n, dtype=torch.bool, device=dev)
-    boundary[1:] = cid_s[1:] != cid_s[:-1]
-    run_start = torch.cummax(torch.where(boundary, iota, 0), dim=0).values
-    return order, cid_s, iota - run_start, starts
+    return order, cid_s, iota - starts.index_select(0, cid_s), starts
 
 
 def _sorted_slot_map(cid, n_query, capacity, live_rows=None):
