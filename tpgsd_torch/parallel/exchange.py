@@ -10,7 +10,10 @@ routes of every shard of the mesh (``routes[d][key]``: the shard that
 phases: it posts every send of the stage, then receives.
 
 * Between two shards of this process a message is a copy to the
-  receiver's device (``.to(device)``: a view when both share it).
+  receiver's device (``.to(device)``: a view when both share it).  A
+  message between two cards is made contiguous on the sender's and
+  copied in one peer copy, which PyTorch issues on the sender's stream
+  and orders against the receiver's with events (no host sync).
 * Between processes every message from one process to another in the
   stage travels in one byte buffer, with one
   ``torch.distributed.batch_isend_irecv`` for the stage on the default
@@ -18,6 +21,10 @@ phases: it posts every send of the stage, then receives.
   point-to-point messages are host tensors, a CUDA buffer is staged
   through pinned host memory (one host sync a stage, counted in
   :data:`stats`).
+
+:data:`stats` counts, since :func:`reset_stats`, what crossed between
+processes, what was delivered between shards of this process, and the
+decomposed steps taken, so a reader can divide the bytes by the steps.
 
 No size handshake is needed: every message a shard receives under a key
 has the shape and dtype of the message it sends under that key (the
@@ -35,9 +42,14 @@ import torch
 #: processes, and host seconds: ``sync_seconds`` waiting for the device
 #: to finish a stage and its copies to the host, ``seconds`` the rest of
 #: the cross-process exchanges (packing, sending, waiting for the peers'
-#: messages, unpacking)
+#: messages, unpacking); ``local_messages`` and ``local_bytes``, the
+#: messages delivered between two shards of this process (one a key a
+#: receiving shard, the bytes of its tensors, whether a copy between
+#: devices or a view on a shared one); ``steps``, the decomposed steps
+#: taken (:meth:`Exchange.count_step`)
 stats = {"host_syncs": 0, "messages": 0, "bytes": 0, "seconds": 0.0,
-         "sync_seconds": 0.0}
+         "sync_seconds": 0.0, "local_messages": 0, "local_bytes": 0,
+         "steps": 0}
 
 _ALIGN = 16  # bytes; every message starts aligned in its buffer
 
@@ -51,10 +63,18 @@ def _tensors(value):
     return list(value) if isinstance(value, (list, tuple)) else [value]
 
 
+def _to_one(t, device):
+    if t.device != device:
+        # one peer copy of the message's bytes, not a kernel that reads a
+        # strided view across the link
+        t = t.contiguous()
+    return t.to(device, non_blocking=True)
+
+
 def _to(value, device):
     if isinstance(value, (list, tuple)):
-        return [t.to(device, non_blocking=True) for t in value]
-    return value.to(device, non_blocking=True)
+        return [_to_one(t, device) for t in value]
+    return _to_one(value, device)
 
 
 def _nbytes(t):
@@ -140,7 +160,11 @@ class Exchange:
                     continue
                 theirs = self.owners[src] == self.rank
                 if mine and theirs:
-                    out[d][key] = _to(sent[src][key], self.devices[d])
+                    msg = sent[src][key]
+                    out[d][key] = _to(msg, self.devices[d])
+                    stats["local_messages"] += 1
+                    stats["local_bytes"] += sum(
+                        t.numel() * t.element_size() for t in _tensors(msg))
                 elif theirs:
                     sends.setdefault(self.owners[d], []).extend(
                         _tensors(sent[src][key]))
@@ -199,6 +223,10 @@ class Exchange:
                     got = next(parts)
                 out[d][key] = _to(got, self.devices[d])
         stats["seconds"] += time.perf_counter() - t0
+
+    def count_step(self):
+        """Count one decomposed step in :data:`stats` (``steps``)."""
+        stats["steps"] += 1
 
     def allreduce_max(self, values):
         """The elementwise largest of ``values`` (one tensor of one shape

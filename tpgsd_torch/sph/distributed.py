@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..parallel.exchange import Exchange
+from ..utils.trace import get_tracer
 from . import ops
 from .cells import CellGrid, CellList, _sorted_slot_map, gather_from_cells
 from .cells import wrap_axes as _wrap_axes
@@ -290,6 +291,7 @@ def make_distributed_step_fn(
     density_mode="summation",
     delta_sph=0.1,
     _traced_dt=False,
+    _ranged=True,
 ):
     """Build the slab-decomposed step over ``mesh``.
 
@@ -341,9 +343,19 @@ def make_distributed_step_fn(
         ``step(state, dt=params.dt) -> (DistState, DistAux)``, carrying
         ``resolved = {"use_kernels", "spill", "density_mode"}``.  ``dt``
         may be a 0-d float32 device tensor.  The step makes no host sync.
-        (With the private ``_traced_dt=True`` it returns ``(state, aux,
-        a2max)``, ``a2max`` one 0-d tensor a shard: the largest ``|a|^2``
-        of its mobile particles, for
+        With the tracer enabled (:func:`tpgsd_torch.utils.get_tracer`)
+        it opens the range ``mesh.step`` and, nested in it, one range a
+        stage over every shard: ``mesh.cells`` (cell build and dense
+        tiers), ``mesh.halo`` (the exchange of the boundary planes),
+        ``mesh.density`` (the density pass and, in summation mode, the
+        exchange of the owners' density and pressure), ``mesh.momentum``
+        (the momentum pass, the options, the gather and integration) and
+        ``mesh.migrate`` (packing, exchanging and inserting the migrants);
+        with ``decomp_axis=1`` ``mesh.step`` holds the axis swaps too.
+        Each step counts one in :data:`~tpgsd_torch.parallel.exchange.
+        stats` (``steps``).  (With the private ``_traced_dt=True`` it
+        returns ``(state, aux, a2max)``, ``a2max`` one 0-d tensor a
+        shard: the largest ``|a|^2`` of its mobile particles, for
         :func:`make_adaptive_distributed_step_fn`.)
     """
     if decomp_axis == 1:
@@ -376,6 +388,7 @@ def make_distributed_step_fn(
     _check_device_type(devices)
     xchg = Exchange(mesh)
     local = xchg.local
+    phase = get_tracer().range
     nxl = nx // n_sh
     nynz = ny * nz
     c = nxl * nynz
@@ -436,8 +449,7 @@ def make_distributed_step_fn(
         return [(e[0:3], e[3:6], e[6] if continuity else None, e[-1] > 0.5)
                 for e in ext]
 
-    @torch.inference_mode()
-    def step(state, dt=params.dt):
+    def body(state, dt):
         _check_state(state, [devices[d] for d in local], cap, continuity,
                      "distribute_state")
         # every per-shard list below runs over this process's shards:
@@ -449,125 +461,132 @@ def make_distributed_step_fn(
 
         # stage 1: the local cells and dense tiers [T, F, c, K] of every
         # shard (x | v | (rho) | live)
-        cells, dense = [], []
-        for i, d in enumerate(local):
-            cl = _local_cells(xs[i], alive[i], nxl, ny, nz, kd, lo_local[d],
-                              cell)
-            cols = [xs[i], vs[i]]
-            if continuity:
-                cols.append(state.rho[i][:, None])
-            cols.append(xs[i].new_ones((cap, 1)))
-            cells.append(cl)
-            dense.append(_scatter(torch.cat(cols, dim=1), cl, c, k, n_tiers))
+        with phase("mesh.cells"):
+            cells, dense = [], []
+            for i, d in enumerate(local):
+                cl = _local_cells(xs[i], alive[i], nxl, ny, nz, kd,
+                                  lo_local[d], cell)
+                cols = [xs[i], vs[i]]
+                if continuity:
+                    cols.append(state.rho[i][:, None])
+                cols.append(xs[i].new_ones((cap, 1)))
+                cells.append(cl)
+                dense.append(_scatter(torch.cat(cols, dim=1), cl, c, k,
+                                      n_tiers))
 
         # stage 2: one plane of cells each way; on the ring the far end's
         # planes arrive with raw coordinates, shifted by -+Lx here so
         # every ghost position is geometrically true
-        ext = _halo_exchange(dense, nynz, periodic, xchg)
-        del dense
-        if periodic:
-            if local[0] == 0:
-                ext[0][:, 0, :nynz] -= lx
-            if local[-1] == n_sh - 1:
-                ext[-1][:, 0, nynz + c:] += lx
-        tiers = [tiers_of(e) for e in ext]
+        with phase("mesh.halo"):
+            ext = _halo_exchange(dense, nynz, periodic, xchg)
+            del dense
+            if periodic:
+                if local[0] == 0:
+                    ext[0][:, 0, :nynz] -= lx
+                if local[-1] == n_sh - 1:
+                    ext[-1][:, 0, nynz + c:] += lx
+            tiers = [tiers_of(e) for e in ext]
 
         # stage 3: density and pressure of every slot of the extended grid
-        if continuity:
-            # carried state: ghost densities are exact as exchanged
-            rho_p = [[_floor_density(t[2], t[3], params) for t in tt]
-                     for tt in tiers]
-        else:
-            # only core outputs are right (a ghost cell's neighbourhood
-            # reaches past the halo): the owners' floored density and
-            # pressure of the boundary planes replace the ghosts'
-            rp_core = []
-            for tt in tiers:
-                rho_t = passes.density(tt)
-                rp_core.append(torch.stack([
-                    torch.stack(_floor_density(r[core], t[3][core], params,
-                                               density_renorm))
-                    for r, t in zip(rho_t, tt)
-                ]))  # [T, 2, c, K]
-            rp_ext = _halo_exchange(rp_core, nynz, periodic, xchg)
-            del rp_core
-            rho_p = [
-                [(torch.where(t[3], rp[0], params.rho0),
-                  torch.where(t[3], rp[1], 0.0)) for t, rp in zip(tt, rpe)]
-                for tt, rpe in zip(tiers, rp_ext)
-            ]
-        fields = [[(t[0], t[1], r, p, t[3]) for t, (r, p) in zip(tt, rp)]
-                  for tt, rp in zip(tiers, rho_p)]
+        with phase("mesh.density"):
+            if continuity:
+                # carried state: ghost densities are exact as exchanged
+                rho_p = [[_floor_density(t[2], t[3], params) for t in tt]
+                         for tt in tiers]
+            else:
+                # only core outputs are right (a ghost cell's neighbourhood
+                # reaches past the halo): the owners' floored density and
+                # pressure of the boundary planes replace the ghosts'
+                rp_core = []
+                for tt in tiers:
+                    rho_t = passes.density(tt)
+                    rp_core.append(torch.stack([
+                        torch.stack(_floor_density(r[core], t[3][core], params,
+                                                   density_renorm))
+                        for r, t in zip(rho_t, tt)
+                    ]))  # [T, 2, c, K]
+                rp_ext = _halo_exchange(rp_core, nynz, periodic, xchg)
+                del rp_core
+                rho_p = [
+                    [(torch.where(t[3], rp[0], params.rho0),
+                      torch.where(t[3], rp[1], 0.0)) for t, rp in zip(tt, rpe)]
+                    for tt, rpe in zip(tiers, rp_ext)
+                ]
+            fields = [[(t[0], t[1], r, p, t[3]) for t, (r, p) in zip(tt, rp)]
+                      for tt, rp in zip(tiers, rho_p)]
 
         # stage 4: the momentum pass (acc | (drho) | (xsph dv)) [C, K, F]
-        mom = [passes.momentum(f) for f in fields]
-        if surface_tension > 0:
-            # as density, a ghost's normals are the owner's
-            n_core = [torch.stack([n[:, core] for n in passes.normals(f)])
-                      for f in fields]  # [T, 3, c, K]
-            n_ext = _halo_exchange(n_core, nynz, periodic, xchg)
-            del n_core
-            for i, f in enumerate(fields):
-                ns = [torch.where(t[4], n, 0.0) for t, n in zip(f, n_ext[i])]
-                for m, st in zip(mom[i], passes.force(f, ns)):
-                    m[..., :3] += st
-        energy = ([passes.energy(f) for f in fields] if compute_energy
-                  else None)
+        with phase("mesh.momentum"):
+            mom = [passes.momentum(f) for f in fields]
+            if surface_tension > 0:
+                # as density, a ghost's normals are the owner's
+                n_core = [torch.stack([n[:, core] for n in passes.normals(f)])
+                          for f in fields]  # [T, 3, c, K]
+                n_ext = _halo_exchange(n_core, nynz, periodic, xchg)
+                del n_core
+                for i, f in enumerate(fields):
+                    ns = [torch.where(t[4], n, 0.0)
+                          for t, n in zip(f, n_ext[i])]
+                    for m, st in zip(mom[i], passes.force(f, ns)):
+                        m[..., :3] += st
+            energy = ([passes.energy(f) for f in fields] if compute_energy
+                      else None)
 
-        # ... the core planes' results as one particle-order gather, and
-        # the integration
-        new, a2 = [], []
-        for i, d in enumerate(local):
-            cols = []
-            for t in range(n_tiers):
-                col = [mom[i][t][core]]
-                if not continuity:
-                    col += [rho_p[i][t][0][core, :, None],
-                            rho_p[i][t][1][core, :, None]]
-                if compute_energy:
-                    col.append(energy[i][t][core, :, None])
-                cols.append(torch.cat(col, dim=-1))
-            out = _gather(torch.cat(cols, dim=1), cells[i], local_grid, kd,
-                          sentinel[d])
-            new.append(integrate(d, out, xs[i], vs[i], pids[i], alive[i],
-                                 state.rho[i] if continuity else None,
-                                 dts[i], a2))
-        del mom, fields, tiers, ext, rho_p
+            # ... the core planes' results as one particle-order gather, and
+            # the integration
+            new, a2 = [], []
+            for i, d in enumerate(local):
+                cols = []
+                for t in range(n_tiers):
+                    col = [mom[i][t][core]]
+                    if not continuity:
+                        col += [rho_p[i][t][0][core, :, None],
+                                rho_p[i][t][1][core, :, None]]
+                    if compute_energy:
+                        col.append(energy[i][t][core, :, None])
+                    cols.append(torch.cat(col, dim=-1))
+                out = _gather(torch.cat(cols, dim=1), cells[i], local_grid, kd,
+                              sentinel[d])
+                new.append(integrate(d, out, xs[i], vs[i], pids[i], alive[i],
+                                     state.rho[i] if continuity else None,
+                                     dts[i], a2))
+            del mom, fields, tiers, ext, rho_p
 
         # stage 5: pack the migrants of every shard
-        packs = [migrants(d, pids[i], *new[i][:5])
-                 for i, d in enumerate(local)]
+        with phase("mesh.migrate"):
+            packs = [migrants(d, pids[i], *new[i][:5])
+                     for i, d in enumerate(local)]
 
-        # stage 6: exchange (a shard receives its left neighbour's
-        # right-going buffers and its right neighbour's left-going ones)
-        # and insert
-        got = xchg([{"L": pk["right"], "R": pk["left"]} for pk in packs],
-                   [dict(zip("LR", _neighbours(d, n_sh, periodic)))
-                    for d in range(n_sh)])
-        out_x, out_v, out_pid, out_rho, out_p, migrate_ovf = ([] for _ in
-                                                               range(6))
-        for pk, g in zip(packs, got):
-            keep, keep_pid, alive_after, send_ovf = pk["keep"]
-            recv = [_empty_buffers(keep, keep_pid) if g[key] is None
-                    else g[key] for key in "LR"]
-            recv_vals = torch.cat([recv[0][0], recv[1][0]])
-            recv_pid = torch.cat([recv[0][1], recv[1][1]])
-            recv_valid = torch.cat([recv[0][2], recv[1][2]])
-            (vals, pid_out), lost = _insert([keep, keep_pid], alive_after,
-                                            [recv_vals, recv_pid],
-                                            recv_valid)
-            out_x.append(vals[:, 0:3].contiguous())
-            out_v.append(vals[:, 3:6].contiguous())
-            out_pid.append(pid_out)
-            live = pid_out >= 0
-            if continuity:
-                # a migrant's density arrived in its payload: state and
-                # aux stay aligned with the slots they describe
-                rho = torch.where(live, vals[:, 6], params.rho0)
-                out_rho.append(rho)
-                out_p.append(torch.where(live, tait_pressure(rho, params),
-                                         0.0))
-            migrate_ovf.append(send_ovf + lost)
+            # stage 6: exchange (a shard receives its left neighbour's
+            # right-going buffers and its right neighbour's left-going ones)
+            # and insert
+            got = xchg([{"L": pk["right"], "R": pk["left"]} for pk in packs],
+                       [dict(zip("LR", _neighbours(d, n_sh, periodic)))
+                        for d in range(n_sh)])
+            out_x, out_v, out_pid, out_rho, out_p, migrate_ovf = ([] for _ in
+                                                                   range(6))
+            for pk, g in zip(packs, got):
+                keep, keep_pid, alive_after, send_ovf = pk["keep"]
+                recv = [_empty_buffers(keep, keep_pid) if g[key] is None
+                        else g[key] for key in "LR"]
+                recv_vals = torch.cat([recv[0][0], recv[1][0]])
+                recv_pid = torch.cat([recv[0][1], recv[1][1]])
+                recv_valid = torch.cat([recv[0][2], recv[1][2]])
+                (vals, pid_out), lost = _insert([keep, keep_pid], alive_after,
+                                                [recv_vals, recv_pid],
+                                                recv_valid)
+                out_x.append(vals[:, 0:3].contiguous())
+                out_v.append(vals[:, 3:6].contiguous())
+                out_pid.append(pid_out)
+                live = pid_out >= 0
+                if continuity:
+                    # a migrant's density arrived in its payload: state and
+                    # aux stay aligned with the slots they describe
+                    rho = torch.where(live, vals[:, 6], params.rho0)
+                    out_rho.append(rho)
+                    out_p.append(torch.where(live, tait_pressure(rho, params),
+                                             0.0))
+                migrate_ovf.append(send_ovf + lost)
 
         if continuity:
             aux_rho, aux_p = out_rho, out_p
@@ -584,9 +603,17 @@ def make_distributed_step_fn(
             migrate_overflow=tuple(migrate_ovf),
             dudt=tuple(nd[7] for nd in new),
         )
+        xchg.count_step()
         if _traced_dt:
             return new_state, aux, tuple(a2)
         return new_state, aux
+
+    @torch.inference_mode()
+    def step(state, dt=params.dt):
+        if not _ranged:  # the axis-swapped step opens the range itself
+            return body(state, dt)
+        with phase("mesh.step"):
+            return body(state, dt)
 
     def integrate(d, out, x, v, pid, alive, rho_in, dt, a2):
         return _integrate_rows(
@@ -809,8 +836,9 @@ def _swapped_step(grid, params, mesh, _traced_dt=False, **kw):
         grid._replace(lo=_swap01_tuple(grid.lo),
                       dims=_swap01_tuple(grid.dims)),
         params._replace(gravity=_swap01_tuple(tuple(params.gravity))),
-        mesh, decomp_axis=0, _traced_dt=_traced_dt, **kw,
+        mesh, decomp_axis=0, _traced_dt=_traced_dt, _ranged=False, **kw,
     )
+    phase = get_tracer().range
     local = mesh.local
     perm = _per_device(tuple(mesh.devices), local, lambda d: torch.tensor(
         _PERM01, dtype=torch.int64, device=d))
@@ -825,8 +853,9 @@ def _swapped_step(grid, params, mesh, _traced_dt=False, **kw):
 
     def step(state, dt=params.dt):
         # |acc| is invariant under the swap: a2max passes straight through
-        out = inner(swapped(state), dt)
-        return (swapped(out[0]),) + tuple(out[1:])
+        with phase("mesh.step"):
+            out = inner(swapped(state), dt)
+            return (swapped(out[0]),) + tuple(out[1:])
 
     step.resolved = inner.resolved
     return step
@@ -1009,7 +1038,11 @@ def collect_aux(dist_state, aux, n_global, params=None, comm=None):
     """Gather a :class:`DistAux`'s per-slot fields to host ``pid`` order:
     numpy ``(rho, p, dudt)``, each ``[n_global]`` (``dudt`` zeros unless
     the step computed the energy).  Absent particles hold ``rho0`` (with
-    ``params``, else 0) and 0.  ``comm`` as :func:`collect_state`'s."""
+    ``params``, else 0) and 0.  ``comm`` as :func:`collect_state`'s.
+
+    ``dist_state`` is the state whose slots the fields describe: in
+    summation mode the state the step took (its rows are computed before
+    the migrants move), in continuity mode the state it returned."""
     pid = _slots(dist_state.pid, comm)
     alive = pid >= 0
     rho0 = float(params.rho0) if params is not None else 0.0

@@ -420,6 +420,7 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
             migrate_overflow=tuple(ovf for _, _, ovf in rows),
             dudt=tuple(nd[2][2] for nd in new),
         )
+        xchg.count_step()
         if _traced_dt:
             return new_state, aux, tuple(a2)
         return new_state, aux

@@ -22,7 +22,10 @@ write site).  tpgsd replaces it with a *runtime* recorder:
   ``torch.profiler.record_function`` ranges named ``tpgsd:<kind>``, and
   :meth:`TraceRecorder.range` opens such a range and records nothing: it
   marks the phases of the step (``step``, ``step.cells``, ...,
-  ``slab.step``, ``slab.sort``, ...) and the dump's ``dump.submit``,
+  ``slab.step``, ``slab.sort``, ..., and the decomposed step's
+  ``mesh.step`` with ``mesh.cells``, ``mesh.halo``, ``mesh.density``,
+  ``mesh.momentum`` and ``mesh.migrate`` nested in it, each over every
+  shard of the process) and the dump's ``dump.submit``,
   whose host duration means nothing because the launches are
   asynchronous.  A range opened on a thread other than the one that
   started the profiler does not reach ``prof.events()``, and neither do
