@@ -30,6 +30,15 @@ the 1M dam break steps with ``xsph=0.5, surface_tension=0.05`` on both
 layouts in both modes with the dump, ``energy_rate`` runs at 1M, their
 kernel steps are held against the plain steps at 100k, and their roles
 and steps are timed.
+Phase 4b holds the row kernel (``slot_rows_kernel``, every step's finish:
+the per-slot results to particle rows) bit for bit against its twin of
+torch operations (``ops.slot_rows_plain``, which the steps built with
+``use_kernels=False`` run, so every kernel-against-plain comparison here
+holds the row kernel too) on the 1M step's own tiers (spill summation,
+5 columns, and continuity with the options, 7), and phase 9 on one
+slab window of the 1e8 step; both are timed beside the kernel's byte
+bound, and the main paths count its launches (one a step, and one the
+continuity seed).
 Phase 8 drives the long-run time loop at 1M: the adaptive step
 (``make_adaptive_step_fn``) at ``dt == params.dt`` bit-identical to the
 fixed step with the same launches on both layouts in both modes (then
@@ -200,7 +209,7 @@ from tpgsd_torch.sph import (
     still_box,
     taylor_green,
 )
-from tpgsd_torch.sph.bigstep import slab_tiers
+from tpgsd_torch.sph.bigstep import _PAD, slab_tiers
 from tpgsd_torch.sph.cells import (
     build_cells,
     build_cells_spill,
@@ -294,6 +303,9 @@ KERNELS = [
      "jnp: tpgsd/sph/step.py:482 _energy_blocks", "wide energy_rate"),
 ]
 SOURCE = "tpgsd_torch/csrc/sph_pairs.cu"
+#: the row kernel's times, filled by phases 4b and 9 for the ``kernels``
+#: line: ``{"1M": {...}, "1e8 window": {...}}``
+ROW_TIMES = {}
 #: the reference's own option settings (tests/test_spill.py)
 OPTIONS = {"xsph": 0.5, "surface_tension": 0.05}
 #: the pair passes the reference runs in jnp, by launch-count family
@@ -1117,6 +1129,15 @@ def phase_main_path(dev, card, params, path):
                 )
         print("%s: launch counts %s (every other role 0)" % (
             tag, json.dumps({k: v for k, v in counts.items() if v})))
+        # the row kernel: one launch a step's finish, one the seed's
+        rows = ops.row_launch_counts["slot_rows"]
+        want_rows = n_steps + (density_mode == "continuity")
+        if rows != want_rows:
+            raise AssertionError("slot_rows launched %d times in %d steps "
+                                 "(expected %d)" % (rows, n_steps, want_rows))
+        print("%s: slot_rows launched %d times (%d steps and %d seed)"
+              % (tag, rows, n_steps, want_rows - n_steps))
+        counts["slot_rows"] = rows
 
         with tpgsd_torch.hoomd.open(path, mode="r") as traj:
             if len(traj) != n_steps // every:
@@ -1143,6 +1164,150 @@ def phase_main_path(dev, card, params, path):
         print("%s: GSD file read back: %d frames, N=%d, finite, last "
               "frame == final state" % (tag, n_steps // every, n))
     return counts
+
+
+def row_bound_ms(rows, n_cols):
+    """The row kernel's byte bound: a row's cell id, slot and ``order``
+    entry (int64 each) and its ``n_cols`` columns read, and the columns
+    written, over the HBM bandwidth."""
+    n_bytes = rows * (24 + 8 * n_cols)
+    return 1e3 * n_bytes / HBM_BYTES_PER_S, n_bytes
+
+
+def capture_rows(name, run, rank=lambda a: 0):
+    """``(calls, (args, kwargs))``: the number of ``ops.<name>`` calls
+    that ``run()`` made, which runs unchanged, and the arguments of the
+    first call of the highest ``rank(args)`` (only that call's tensors
+    are kept)."""
+    real, seen = getattr(ops, name), {"calls": 0}
+
+    def spy(*a, **kw):
+        r = rank(a)
+        if "best" not in seen or r > seen["rank"]:
+            seen.update(best=(a, kw), rank=r)
+        seen["calls"] += 1
+        return real(*a, **kw)
+
+    setattr(ops, name, spy)
+    try:
+        run()
+    finally:
+        setattr(ops, name, real)
+    return seen["calls"], seen.get("best")
+
+
+def phase_rows(dev, card):
+    """Phase 4b: ``slot_rows_kernel`` against its twin
+    (``ops.slot_rows_plain``) bit for bit on the row call of one 1M step's
+    finish, the spill summation step (5 columns, timed beside its byte
+    bound) and the spill continuity step with the options (7 columns)."""
+    for mode, options in (("summation", None), ("continuity", OPTIONS)):
+        step, state = configuration("spill", N_1M, dev, mode,
+                                    options=options)
+        calls, (a, kw) = capture_rows("slot_rows", lambda: step(state))
+        if calls != 1:
+            raise AssertionError("%d row calls in a step" % calls)
+        kw = dict(kw, plain=False)
+        got = ops.slot_rows(*a, **kw)
+        want = ops.slot_rows(*a, **dict(kw, plain=True))
+        n, f = got.shape
+        if not (got.dtype == want.dtype == torch.float32
+                and got.shape == want.shape
+                and torch.equal(got.view(torch.int32),
+                                want.view(torch.int32))):
+            raise AssertionError("slot_rows %s at N=%d differs from its twin"
+                                 % (mode, n))
+        tag = "phase 4b (rows, 1M spill %s%s)" % (
+            mode, " with %s" % json.dumps(options) if options else "")
+        if options is None:
+            kms = cuda_ms(lambda: ops.slot_rows(*a, **kw), 20, 3)
+            pms = cuda_ms(lambda: ops.slot_rows(*a, **dict(kw, plain=True)),
+                          5, 1)
+            bound, n_bytes = row_bound_ms(n, f)
+            ROW_TIMES["1M"] = {"ms": kms, "plain_ms": pms, "bound_ms": bound}
+            print("%s: slot_rows bit-equal to its twin, N=%d rows of %d "
+                  "columns, %d tiers of K=%d; kernel %.4f ms, twin %.4f ms, "
+                  "bound %.4f ms by bytes (%.4g bytes; kernel at %.1f%% of "
+                  "the bound's rate) [%s]"
+                  % (tag, n, f, len(a[0]), a[0][0][0].shape[1], kms, pms,
+                     bound, n_bytes, 100.0 * bound / kms, card))
+        else:
+            print("%s: slot_rows bit-equal to its twin, N=%d rows of %d "
+                  "columns [%s]" % (tag, n, f, card))
+        del step, state, calls, a, kw, got, want
+
+
+def hold_slab_rows(step, state, grid, n_slabs, card):
+    """Phase 9: ``slot_rows_kernel`` against its twin on the window of the
+    1e8 step's most populated slab, bit for bit (the particle rows it
+    writes and its window-order rows), timed beside the byte bound of the
+    slab's own rows."""
+    calls, (a, kw) = capture_rows(
+        "window_rows", lambda: step(state),
+        lambda a: int(a[7] - a[6]))  # the slab's own rows (a host sync)
+    if calls != n_slabs:
+        raise AssertionError("%d window calls in a step" % calls)
+    # a[11] is the offset of the domain's first cell, _PAD - s nxl planes
+    s = (_PAD - a[11][0]) // (grid.dims[0] // n_slabs)
+    own = int(a[7] - a[6])
+    n_rows = int(a[8])
+    tiers, fill, out = a[0], a[1], a[2]
+    n, f = out.shape
+    rest = a[3:]
+    got = out.new_zeros((n, f))
+    want = out.new_zeros((n, f))
+    win = ops.window_rows(tiers, fill, got, *rest,
+                          **dict(kw, emit=True, plain=False))
+    win_p = ops.window_rows(tiers, fill, want, *rest,
+                            **dict(kw, emit=True, plain=True))
+    for name, x, y in (("particle rows", got, want), ("window", win, win_p)):
+        if not (x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                                   y.view(torch.int32))):
+            raise AssertionError("1e8 slab %d: the row kernel's %s differ "
+                                 "from its twin" % (s, name))
+    del win, win_p, want
+    silent = dict(kw, emit=False)
+    kms = cuda_ms(lambda: ops.window_rows(tiers, fill, got, *rest,
+                                          **dict(silent, plain=False)), 10, 2)
+    pms = cuda_ms(lambda: ops.window_rows(tiers, fill, got, *rest,
+                                          **dict(silent, plain=True)), 3, 1)
+    bound, n_bytes = row_bound_ms(own, f)
+    ROW_TIMES["1e8 window"] = {"ms": kms, "plain_ms": pms, "bound_ms": bound,
+                               "rows": own, "window": n_rows}
+    print("phase 9 (1e8 rows): slot_rows on slab %d of %d, the most "
+          "populated (%d own rows, a window of %d, %d columns, %d tiers), "
+          "bit-equal to its twin, particle rows and window rows; kernel "
+          "%.4f ms, twin %.4f ms, bound %.4f ms by bytes (%.4g bytes of the "
+          "slab's own rows; kernel at %.1f%% of the bound's rate) [%s]"
+          % (s, n_slabs, own, n_rows, f, len(tiers), kms, pms, bound,
+             n_bytes, 100.0 * bound / kms, card))
+    del got, tiers, a, kw
+
+
+def row_kernel_entry(counts, slab_counts):
+    """The row kernel's entry of the ``kernels`` line: launches on the
+    1M summation main path (20 steps) and in the 1e8 cycle's 4 silent
+    summation steps, times from phases 4b and 9."""
+    one_m, window = ROW_TIMES["1M"], ROW_TIMES["1e8 window"]
+    return {
+        "name": "slot_rows",
+        "route": "cuda",
+        "source": "tpgsd_torch/csrc/slot_rows.cu",
+        "replaces": "jnp: the per-slot bundle concatenation and the "
+                    "inverse-permutation gather of the step's finish",
+        "launches": counts["summation"]["slot_rows"],
+        "slab_launches": slab_counts["slot_rows"],
+        "max_abs_err": 0.0,
+        "max_scaled_err": 0.0,
+        "ms": one_m["ms"],
+        "plain_ms": one_m["plain_ms"],
+        "bound_ms": one_m["bound_ms"],
+        "bound_by": "bytes",
+        "window_ms": window["ms"],
+        "window_plain_ms": window["plain_ms"],
+        "window_bound_ms": window["bound_ms"],
+        "library_ms": None,
+    }
 
 
 def moving_state(state, dev, seed=5, scale=0.1):
@@ -2469,7 +2634,11 @@ def phase_cycle_1e8(dev, card):
         got = {k: v for k, v in ops.launch_counts.items() if v}
         if got != slab_launches("spill", mode, slabs, 4):
             raise AssertionError("1e8 %s: launches %s" % (mode, got))
+        if ops.row_launch_counts["slot_rows"] != 4 * slabs:
+            raise AssertionError("1e8 %s: slot_rows launched %d times"
+                                 % (mode, ops.row_launch_counts["slot_rows"]))
         counts.update(got)
+        counts["slot_rows"] = ops.row_launch_counts["slot_rows"]
         peak = (torch.cuda.max_memory_allocated() - base) / n
         print("phase 9 (1e8 %s): %.4f ms/step (CUDA events over 3 silent "
               "steps after 1), %.4g particle-steps/s, peak %.1f B a "
@@ -2493,6 +2662,8 @@ def phase_cycle_1e8(dev, card):
     state = box[0]
     del box
     hold_slab_roles(state, grid, params, slabs, card)
+    torch.cuda.empty_cache()
+    hold_slab_rows(step, state, grid, slabs, card)
     torch.cuda.empty_cache()
 
     tmpdir = tempfile.gettempdir()
@@ -4265,6 +4436,7 @@ def main():
     errs.update(errs_wide)
     counts = {path: phase_main_path(dev, card, params, path) for path in PATHS}
     counts.update(phase_energy_rate(dev, card)[0])
+    phase_rows(dev, card)
     phase_periodic(dev, card)
     steps100 = {mode: phase_kernel_vs_plain_step(dev, mode)
                 for mode in PATHS_MODES}
@@ -4348,6 +4520,7 @@ def main():
         }
         for name, key, replaces, path in KERNELS
     ]
+    kernels.append(row_kernel_entry(counts, slab_counts))
     print("card: %s" % card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -238,6 +238,8 @@ def test_kernel_step_matches_plain_step(cuda):
     assert _launched() == {
         "density_self": 2, "density_cross": 2, "accel_self": 2, "accel_cross": 2
     }
+    # the plain step's rows come from the twin, not the row kernel
+    assert ops.row_launch_counts == {"slot_rows": 1}
     numpy.testing.assert_allclose(
         sk.x.cpu().numpy(), sp.x.cpu().numpy(), rtol=1e-5, atol=1e-6
     )
@@ -1478,3 +1480,177 @@ def test_sorted_runs_on_the_card_equal_the_cpu(cuda):
     for name, w, o in zip(("order", "cid_s", "slot", "starts"), want, got):
         assert o.dtype == torch.int64, name
         assert torch.equal(o.cpu(), w), name
+
+
+#: the pair kernels' launch-count keys (the benchmark compares every
+#: nonzero one with a configuration's ``launches_per_step``)
+PAIR_LAUNCH_KEYS = {
+    "%s_%s" % (family, role)
+    for family in ("density", "accel", "accel_drho", "accel_xsph",
+                   "accel_drho_xsph", "st_normals", "st_force", "energy")
+    for role in ("self", "cross", "wide")
+}
+
+
+def _on_cpu(a):
+    """``a`` with every tensor (in lists, tuples and NamedTuples) copied to
+    the CPU."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_on_cpu(v) for v in a))
+    if isinstance(a, (list, tuple)):
+        return type(a)(_on_cpu(v) for v in a)
+    return a
+
+
+def _spy_rows(monkeypatch):
+    """Record every ``slot_rows`` / ``window_rows`` call of a step with the
+    kernel's result, and run the same call on CPU copies of its inputs
+    (the twin); returns the list of ``(name, kernel result, twin
+    result)``."""
+    seen = []
+    real_rows, real_window = ops.slot_rows, ops.window_rows
+
+    def rows(tiers, fill, cells, *a, **kw):
+        got = real_rows(tiers, fill, cells, *a, **kw)
+        twin = real_rows(_on_cpu(tiers), fill, _on_cpu(cells), *a, **kw)
+        seen.append(("slot_rows", got.cpu(), twin))
+        return got
+
+    def window(tiers, fill, out, order, cid, slot, p0, p1, *a, **kw):
+        twin = out.cpu()  # the twin writes its rows into this copy
+        win = real_window(tiers, fill, out, order, cid, slot, p0, p1, *a,
+                          **kw)
+        twin_win = real_window(_on_cpu(tiers), fill, twin, order.cpu(),
+                               cid.cpu(), slot.cpu(), p0.cpu(), p1.cpu(), *a,
+                               **kw)
+        seen.append(("window_rows", out.cpu(), twin))
+        if win is not None:
+            seen.append(("window", win.cpu(), twin_win))
+        return win
+
+    monkeypatch.setattr(ops, "slot_rows", rows)
+    monkeypatch.setattr(ops, "window_rows", window)
+    return seen
+
+
+def _bits_equal(a, b):
+    return (a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1m-summation", "1m-continuity-options",
+                                  "wide-summation", "slab3", "slab3-emit",
+                                  "block2d"])
+def test_row_kernel_equals_its_twin_on_the_card(cuda, case, monkeypatch,
+                                                tmp_path):
+    """``slot_rows_kernel`` against its CPU twin, bit for bit, on every row
+    call of one step: the 1M dam break's first step (the flagship spill
+    summation step; continuity with XSPH and surface tension), the single
+    tier at K = 128, a 3-slab slab step silent and emitting (the window's
+    particle rows and its frame rows), and a (2, 2) block step; the row
+    kernel launches once a finish, a slab and a shard."""
+    from tpgsd_torch.sph import make_slab_step_fn
+
+    seen = _spy_rows(monkeypatch)
+    ops.reset_launch_counts()
+    if case.startswith("1m"):
+        continuity = "continuity" in case
+        db = dam_break(n_side=86, capacity="auto", capacity_headroom=1.15,
+                       device=cuda)
+        grid = db.grid._replace(capacity=min(max(db.grid.capacity, 24), 64))
+        state = db.state
+        opts = {}
+        if continuity:
+            state = init_density(state, grid, db.params, device=cuda)
+            opts = {"xsph": 0.5, "surface_tension": 0.05}
+            seen.clear()  # the seed's rows are not the step's
+            ops.reset_launch_counts()
+        step = make_step_fn(grid, db.params, device=cuda,
+                            density_mode="continuity" if continuity
+                            else "summation", **opts)
+        assert step.resolved["spill"]
+        step(state)
+        want_launches = 1
+    elif case == "wide-summation":
+        db = dam_break(n_side=30, capacity=128, device=cuda)
+        step = make_step_fn(db.grid, db.params, device=cuda)
+        assert not step.resolved["spill"]
+        step(db.state)
+        want_launches = 1
+    elif case.startswith("slab3"):
+        db, state = _slab_state(cuda, 24, "summation")
+        if case.endswith("emit"):
+            from tpgsd_torch.io_runtime import SlabDumpChannel
+            from tpgsd_torch.parallel import ShardedFrameWriter, SingleComm
+
+            chan = SlabDumpChannel(
+                ShardedFrameWriter(str(tmp_path / "f.gsd"), comm=SingleComm()),
+                n=db.n, n_slabs=3, keys=("position", "density"))
+            step = make_slab_step_fn(db.grid, db.params, 3, device=cuda,
+                                     slab_emit=chan.slab_emit)
+            step(state, chan.dump(0))
+            chan.close()
+        else:
+            make_slab_step_fn(db.grid, db.params, 3, device=cuda)(state)
+        want_launches = 3
+    else:
+        _db, mesh, dist, _cap, step_k, _step_p = _block_pair(
+            cuda, "2d", "spill", "summation")
+        ops.reset_launch_counts()
+        step_k(dist)
+        want_launches = mesh.size
+    torch.cuda.synchronize()
+    assert ops.row_launch_counts == {"slot_rows": want_launches}
+    assert set(ops.launch_counts) == PAIR_LAUNCH_KEYS
+    names = [s[0] for s in seen]
+    if case.startswith("slab3"):
+        assert names.count("window_rows") == 3
+        assert names.count("window") == (3 if case.endswith("emit") else 0)
+    else:
+        assert names == ["slot_rows"] * want_launches
+    for name, got, twin in seen:
+        assert _bits_equal(got, twin), name
+
+
+@pytest.mark.cuda
+def test_window_rows_kernel_equals_its_twin_with_overflow(cuda):
+    """The slab step's window rows on the card against the twin, bit for
+    bit, where the window is narrower than a slab and where it is wider:
+    a window writes its own slab's rows alone, the rows that no window
+    reaches keep the fill row, and the window-order rows past the slab's
+    end are the fill row; a 3-slab step's three windows in turn."""
+    from tpgsd_torch.sph.bigstep import _PAD, _slab_geometry, _sorted_rows
+
+    db, state = _slab_state(cuda, 24, "summation")
+    grid, k = db.grid, db.grid.capacity
+    nxl, c_ext, ext_grid = _slab_geometry(grid, 3)
+    nynz = grid.dims[1] * grid.dims[2]
+    order, cid_pad, slot_pad, _vs, starts_ext, _c, _o = _sorted_rows(
+        state, grid, 2 * k, False)
+    n = order.shape[0]
+    g = torch.Generator().manual_seed(21)
+    fill = (0.0, 0.0, 0.0, 1000.0, 0.0)
+    out = torch.tensor(fill).expand(n, 5).clone().to(cuda)
+    twin = out.cpu()
+    ops.reset_launch_counts()
+    for width in (50, n):
+        for s in range(3):
+            tiers = [[torch.randn((5, c_ext, k), generator=g)
+                      .permute(1, 2, 0).to(cuda)] for _ in range(2)]
+            p0 = starts_ext[s * nxl * nynz + _PAD * nynz]
+            p1 = starts_ext[(s + 1) * nxl * nynz + _PAD * nynz]
+            args = (grid.dims, ext_grid.dims, (_PAD - s * nxl, 0, 0))
+            win = ops.window_rows(tiers, fill, out, order, cid_pad, slot_pad,
+                                  p0, p1, width, *args, emit=True)
+            twin_win = ops.window_rows(
+                _on_cpu(tiers), fill, twin, order.cpu(), cid_pad.cpu(),
+                slot_pad.cpu(), p0.cpu(), p1.cpu(), width, *args, emit=True)
+            assert _bits_equal(win.cpu(), twin_win)
+            own = int(p1 - p0)
+            if width > own:
+                assert bool((twin_win[own:] == torch.tensor(fill)).all())
+        assert _bits_equal(out.cpu(), twin)
+    assert ops.row_launch_counts == {"slot_rows": 6}

@@ -43,7 +43,7 @@ SEED = 2 ** 31 + 4242  # seeds past 32 signed bits must work
 N_SIDE = 9  # 1,089 particles; cells (8, 4, 4): one y plane a shard
 CAP = 600  # slots a shard, about twice the fullest slab's particles
 MESH_RANGES = ("mesh.cells", "mesh.halo", "mesh.density", "mesh.momentum",
-               "mesh.migrate")
+               "mesh.migrate")  # and a mesh.rows a shard inside mesh.momentum
 
 
 def small_cfg(n_side=N_SIDE, shards=4, capacity=CAP):
@@ -193,8 +193,14 @@ def test_mesh_ranges_nest_in_the_step_and_change_no_bit(run):
         tracer.events.clear()
     (top,) = [r for r in on if r[0] == "mesh.step"]
     kids = [r for r in on if r[0] != "mesh.step"]
-    assert [r[0] for r in kids] == list(MESH_RANGES)
+    rows = [r for r in kids if r[0] == "mesh.rows"]
+    assert [r[0] for r in kids if r[0] != "mesh.rows"] == list(MESH_RANGES)
     assert all(top[1] <= r[1] and r[2] <= top[2] for r in kids)
+    # one range of the per-slot results to particle rows a shard, inside
+    # the momentum stage that takes them
+    (mom,) = [r for r in kids if r[0] == "mesh.momentum"]
+    assert len(rows) == len(states[0].dist.pid)
+    assert all(mom[1] <= r[1] and r[2] <= mom[2] for r in rows)
     for a, b in zip([s_off.x, s_off.v, a_off[0].full(), a_off[1].full()],
                     [s_on.x, s_on.v, a_on[0].full(), a_on[1].full()]):
         assert torch.equal(a, b)

@@ -20,9 +20,9 @@ from tpgsd_torch.utils import get_tracer
 CPU = "cpu"
 N_SLABS = 7  # the n_side=8 dam break has 7 cell planes along x
 STEP_RANGES = ("step.cells", "step.density", "step.momentum",
-               "step.surface_tension", "step.finish")
+               "step.surface_tension", "step.finish", "step.rows")
 SLAB_RANGES = ("slab.sort", "slab.tiers", "slab.pairs", "slab.window",
-               "slab.finish")
+               "slab.rows", "slab.finish")
 
 
 @pytest.fixture(scope="module")
@@ -92,6 +92,8 @@ def test_every_range_nests_in_its_step(scenario, tracer):
     kids = [r for r in ranges if r[0] != "step"]
     assert [r[0] for r in kids] == list(STEP_RANGES)
     assert all(inside(r, top) for r in kids)
+    # the rows of the per-slot results are taken inside the finish
+    assert inside(kids[-1], kids[-2])
 
     _, ranges, _ = profiled(lambda: slab(scenario.state))
     (top,) = [r for r in ranges if r[0] == "slab.step"]
@@ -99,9 +101,13 @@ def test_every_range_nests_in_its_step(scenario, tracer):
     assert all(inside(r, top) for r in kids)
     names = [r[0] for r in kids]
     assert names == (["slab.sort"]
-                     + ["slab.tiers", "slab.pairs", "slab.window"] * N_SLABS
+                     + ["slab.tiers", "slab.pairs", "slab.window",
+                        "slab.rows"] * N_SLABS
                      + ["slab.finish"])
     assert {r[0] for r in kids} == set(SLAB_RANGES)
+    windows = [r for r in kids if r[0] == "slab.window"]
+    rows = [r for r in kids if r[0] == "slab.rows"]
+    assert all(inside(r, w) for r, w in zip(rows, windows, strict=True))
     assert tracer.events == []  # a range records no event
 
 

@@ -119,6 +119,18 @@ def _declare(lib):
     ):
         fn.argtypes = argtypes
         fn.restype = i
+    ll = ctypes.c_longlong
+    lib.tpgsd_slot_rows.argtypes = [
+        p, p, p, p, p,  # cid, slot, order, row0, row1 (or null both)
+        ll, ll,  # n_rows, n
+        p, p, p,  # tier_a, tier_b (plane pointers), fill
+        i, i, i,  # n_cols, k, n_tiers
+        ll, ll, ll, ll, ll, ll,  # plane_in, nz_in, plane_ext, nz_ext,
+        # offset, n_ext
+        p, p,  # out, win (or null)
+        p,  # stream
+    ]
+    lib.tpgsd_slot_rows.restype = i
     lib.tpgsd_tile_smem.argtypes = [i, i, i]
     lib.tpgsd_tile_smem.restype = ctypes.c_longlong
     lib.tpgsd_error_string.argtypes = [i]

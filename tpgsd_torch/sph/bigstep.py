@@ -15,11 +15,14 @@ particles, so a Python loop over the ``n_slabs`` slabs
    cells' first sorted positions and counts,
 2. runs the unchanged pair passes on that slab's extended grid (the CUDA
    kernels on the card, the plain passes elsewhere),
-3. gathers the core cells' per-slot results through a window of
-   ``w_rows`` sorted rows starting at the slab's first particle and
-   writes them into a full-length sorted-order output.  Slabs write in
-   ascending order, so a row's last writer is its owning slab; a slab
-   with more particles than the window is counted in ``aux[3]``.
+3. takes the per-slot results of a window of ``w_rows`` sorted rows
+   starting at the slab's first particle straight to their particle
+   rows of a full-length output (:func:`~tpgsd_torch.sph.ops.
+   window_rows`: one launch of ``slot_rows_kernel`` on the card), with
+   no per-slot bundle and no inverse permutation.  A window writes only
+   its own slab's rows (those before the next slab's first), so each
+   row has one writer; a slab with more particles than the window is
+   counted in ``aux[3]``.
 
 The kernels take pair separations as differences of absolute positions,
 so positions are not shifted into a slab frame: every core centre sees
@@ -231,21 +234,25 @@ def make_slab_step_fn(
     hi = torch.from_numpy(hi_np).to(dev)
     gravity = torch.from_numpy(np.asarray(params.gravity, np.float32)).to(dev)
 
+    # the fill row of a dropped or never-written particle: zero acc, p and
+    # drho (continuity keeps the carried density), rho0
+    fill = (0.0,) * 4 if continuity else (0.0,) * 3 + (float(params.rho0),
+                                                        0.0)
+    fill_row = torch.tensor(fill, dtype=torch.float32).to(dev)
+
     def integrate(x, v, out, fixed, rho_cur=None):
         """The global step's integration (:func:`~tpgsd_torch.sph.step.
         _integrate`) from per-particle result rows ``out`` ([acc3 | rho |
-        p | live], or [acc3 | drho | 0 | live] with the carried density
-        ``rho_cur``), shared by the epilogue and the emitted windows, so
-        streamed rows are the post-step state bit for bit.  Rows of
-        dropped or never-written particles are zero (ballistic, ``rho0``,
-        ``p = 0``; continuity keeps the carried density)."""
+        p], or [acc3 | drho] with the carried density ``rho_cur``), shared
+        by the epilogue and the emitted windows, so streamed rows are the
+        post-step state bit for bit.  Rows of dropped or never-written
+        particles are the fill row (ballistic, ``rho0``, ``p = 0``;
+        continuity keeps the carried density)."""
         acc = out[:, :3] + gravity
         if continuity:
             rho, p = _carried_density(rho_cur, out[:, 3], params.dt, params)
         else:
-            live = out[:, 5] > 0.5
-            rho = torch.where(live, out[:, 3], params.rho0)
-            p = torch.where(live, out[:, 4], 0.0)
+            rho, p = out[:, 3], out[:, 4]
         x_new, v_new = _integrate(x, v, acc, params.dt, params, lo, hi)
         if fixed is not None:
             x_new = torch.where(fixed[:, None], x, x_new)
@@ -255,14 +262,11 @@ def make_slab_step_fn(
     def finish_rho(rho, mask):
         return _floor_density(rho, mask, params, density_renorm)
 
-    def bundle_of(acc, col3, col4, mask):
-        """``[c_ext, K, 6]`` per-slot results: acc3 | col3 | col4 | live."""
-        return torch.cat([acc, col3[..., None], col4[..., None],
-                          mask[..., None].to(acc.dtype)], dim=-1)
-
-    def slab_bundle(tiers):
-        """The ``[c_ext, kt, 6]`` per-slot results of one slab's extended
-        range from its :func:`_slab_tiers`."""
+    def slab_columns(tiers):
+        """The column sources of one slab's per-slot results a tier, from
+        its :func:`_slab_tiers` (:func:`~tpgsd_torch.sph.ops.slot_rows`):
+        [acc3 | rho | p], or [acc3 | drho] in continuity mode; ``rho``
+        is ``rho0`` and ``p`` 0 in dead slots."""
         soa_a, m_a = tiers[0]
         if spill:
             soa_b, m_b = tiers[1]
@@ -274,11 +278,7 @@ def make_slab_step_fn(
                     soa_b[:3], soa_b[3:6], rho_b, p_b, m_b,
                     ext_grid, params, delta_sph=delta_sph, kernel=kernel,
                 )  # [c_ext, K, 4] each: acc3 | drho
-                zero = out_a.new_zeros(out_a.shape[:-1])
-                return torch.cat([
-                    bundle_of(out_a[..., :3], out_a[..., 3], zero, m_a),
-                    bundle_of(out_b[..., :3], out_b[..., 3], zero, m_b),
-                ], dim=1)
+                return [[out_a], [out_b]]
             rho_a, rho_b = pairs.density(soa_a[:3], m_a, soa_b[:3], m_b,
                                          ext_grid, params, kernel=kernel)
             rho_a, p_a = finish_rho(rho_a, m_a)
@@ -288,21 +288,18 @@ def make_slab_step_fn(
                 soa_b[:3], soa_b[3:6], rho_b, p_b, m_b,
                 ext_grid, params, kernel=kernel,
             )  # [c_ext, K, 3] each
-            return torch.cat([bundle_of(acc_a, rho_a, p_a, m_a),
-                              bundle_of(acc_b, rho_b, p_b, m_b)], dim=1)
+            return [[acc_a, rho_a, p_a], [acc_b, rho_b, p_b]]
         if continuity:
             rho_d, p_d = finish_rho(soa_a[6], m_a)
             out4 = pairs.momentum(soa_a[:3], soa_a[3:6], rho_d, p_d, m_a,
                                   ext_grid, params, delta_sph=delta_sph,
                                   kernel=kernel)
-            out4 = out4.permute(1, 2, 0)
-            return bundle_of(out4[..., :3], out4[..., 3],
-                             out4.new_zeros(out4.shape[:-1]), m_a)
+            return [[out4.permute(1, 2, 0)]]
         rho_d, p_d = finish_rho(pairs.density(soa_a[:3], m_a, ext_grid,
                                               params, kernel=kernel), m_a)
         acc = pairs.momentum(soa_a[:3], soa_a[3:6], rho_d, p_d, m_a, ext_grid,
                              params, kernel=kernel)
-        return bundle_of(acc.permute(1, 2, 0), rho_d, p_d, m_a)
+        return [[acc.permute(1, 2, 0), rho_d, p_d]]
 
     def check(state, dump):
         if state.x.device != dev:
@@ -330,8 +327,8 @@ def make_slab_step_fn(
 
     def slabs(state, dump):
         """The step inside ``slab.step``: the ranges ``slab.sort``, then
-        ``slab.tiers``, ``slab.pairs`` and ``slab.window`` a slab, then
-        ``slab.finish``."""
+        ``slab.tiers``, ``slab.pairs`` and ``slab.window`` (with
+        ``slab.rows`` inside it) a slab, then ``slab.finish``."""
         emit = slab_emit is not None and bool(dump.emit)
         x, v = state.x, state.v
         n = x.shape[0]
@@ -342,8 +339,11 @@ def make_slab_step_fn(
                 cell_ovf = _sorted_rows(state, grid, kt, continuity)
             if emit:
                 pid_pad = torch.cat([order, order.new_full((1,), -1)]).int()
-            window_rows = torch.arange(w_rows, dtype=torch.int64, device=dev)
-            out = x.new_zeros((n + 1, 6))  # sorted order; row n is discarded
+                window_rows = torch.arange(w_rows, dtype=torch.int64,
+                                           device=dev)
+            # particle order; a row no window reaches keeps the fill row
+            out = x.new_empty((n, len(fill)))
+            out.copy_(fill_row.expand(n, len(fill)))
             win_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         for s in range(S):
             c0e = s * nxl * nynz  # the slab's extended range in starts_ext
@@ -351,24 +351,26 @@ def make_slab_step_fn(
                 tiers = _slab_tiers(vs_t, starts_ext[c0e:c0e + c_ext],
                                     counts_ext[c0e:c0e + c_ext], k, spill)
             with phase("slab.pairs"):
-                bundle = slab_bundle(tiers)
+                cols = slab_columns(tiers)
             del tiers
             with phase("slab.window"):
                 p0 = starts_ext[c0e + core0]  # the slab's first sorted row
-                rows = torch.clamp(p0 + window_rows, max=n)
-                cw = cid_pad[rows] - (s * nxl - _PAD) * nynz
-                sw = slot_pad[rows]
-                flat = (torch.clamp(cw, 0, c_ext - 1) * kt
-                        + torch.clamp(sw, 0, kt - 1))
-                win = bundle.reshape(-1, 6)[flat]
-                # dropped (cell-overflow) particles: the clamped gather read
-                # a live slot, so zero their rows (the global step's
-                # sentinel)
-                win = torch.where((sw < kt)[:, None], win, 0.0)
-                out.index_copy_(0, rows, win)
-                rows_s = starts_ext[c0e + core0 + nxl * nynz] - p0
+                p1 = starts_ext[c0e + core0 + nxl * nynz]  # the next's
+                with phase("slab.rows"):
+                    # the window's own rows to their particle rows; its
+                    # cells are the domain's less the extended range's
+                    # first
+                    win = ops.window_rows(
+                        cols, fill, out, order, cid_pad, slot_pad, p0, p1,
+                        w_rows, grid.dims, ext_grid.dims,
+                        (_PAD - s * nxl, 0, 0), emit=emit,
+                        plain=not use_kernels,
+                    )
+                del cols
+                rows_s = p1 - p0
                 win_ovf += torch.clamp(rows_s - w_rows, min=0)
                 if emit:
+                    rows = torch.clamp(p0 + window_rows, max=n)
                     pids = pid_pad[rows]
                     xvr = vs_t[:, rows]
                     fixed = ((pids >= 0) & (pids < n_fixed) if n_fixed > 0
@@ -381,17 +383,13 @@ def make_slab_step_fn(
                                          p_w[:, None]], dim=-1)
                     dump.pipe.submit(slab_emit, dump.step, s, p0, rows_s,
                                      pids, payload)
-        del vs_t, cid_pad, slot_pad, bundle
+        del vs_t, cid_pad, slot_pad
 
         with phase("slab.finish"):
-            # the inverse permutation as a scatter of the sorted rows
-            out_p = out.new_empty((n, 6))
-            out_p.index_copy_(0, order, out[:n])
-            del out
             fixed = (torch.arange(n, device=dev) < n_fixed if n_fixed > 0
                      else None)
             x_new, v_new, rho, p = integrate(
-                x, v, out_p, fixed, rho_cur=state.rho if continuity else None
+                x, v, out, fixed, rho_cur=state.rho if continuity else None
             )
         return (
             SPHState(x=x_new, v=v_new, rho=rho if continuity else None),

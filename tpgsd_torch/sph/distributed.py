@@ -58,7 +58,7 @@ import torch
 from ..parallel.exchange import Exchange
 from ..utils.trace import get_tracer
 from . import ops
-from .cells import CellGrid, CellList, _sorted_slot_map, gather_from_cells
+from .cells import CellGrid, CellList, _sorted_slot_map
 from .cells import wrap_axes as _wrap_axes
 from .kernels import WendlandC2
 from .step import (
@@ -137,14 +137,26 @@ def _scatter(values, cells, c, k, n_tiers):
     return vs_t[:, idx].transpose(0, 1)
 
 
-def _gather(dense, cells, local_grid, capacity, sentinel):
-    """Per-particle rows of the per-slot ``dense [c, capacity, F]``
-    (dropped and dead particles read the ``sentinel [F]`` row), through
-    the sort's inverse permutation
-    (:func:`~tpgsd_torch.sph.cells.gather_from_cells`)."""
-    sent = sentinel.expand(1, capacity, sentinel.shape[0])
-    return gather_from_cells(torch.cat([dense, sent]), cells, local_grid,
-                             capacity=capacity)
+def _rows(mom, rho_p, energy, cells, fill, local_grid, ext_grid,
+          plain=False):
+    """One shard's particle rows of its core cells' per-slot results
+    (:func:`~tpgsd_torch.sph.ops.slot_rows`), a list a tier each:
+    ``mom`` the momentum pass's ``[C_ext, K, F]`` (acc | (drho) | (xsph
+    dv)), ``rho_p`` the ``(rho, p)`` planes (summation mode, else
+    ``None``) and ``energy`` du/dt (or ``None``); dropped and dead
+    particles read ``fill``.  The core block of ``local_grid`` lies one
+    ghost layer into each extended axis of ``ext_grid``; ``plain`` as
+    in :func:`~tpgsd_torch.sph.ops.slot_rows`."""
+    tiers = []
+    for t, m in enumerate(mom):
+        cols = [m] + ([] if rho_p is None else list(rho_p[t]))
+        if energy is not None:
+            cols.append(energy[t])
+        tiers.append(cols)
+    offset = tuple((e - b) // 2 for e, b in zip(ext_grid.dims,
+                                                local_grid.dims))
+    return ops.slot_rows(tiers, fill, cells, local_grid.dims, ext_grid.dims,
+                         offset, plain=plain)
 
 
 def _neighbours(d, n_shards, ring):
@@ -349,7 +361,8 @@ def make_distributed_step_fn(
         tiers), ``mesh.halo`` (the exchange of the boundary planes),
         ``mesh.density`` (the density pass and, in summation mode, the
         exchange of the owners' density and pressure), ``mesh.momentum``
-        (the momentum pass, the options, the gather and integration) and
+        (the momentum pass, the options, the rows to particles, a
+        ``mesh.rows`` range a shard, and the integration) and
         ``mesh.migrate`` (packing, exchanging and inserting the migrants);
         with ``decomp_axis=1`` ``mesh.step`` holds the axis swaps too.
         Each step counts one in :data:`~tpgsd_torch.parallel.exchange.
@@ -440,8 +453,7 @@ def make_distributed_step_fn(
         np.asarray(params.gravity, np.float32)).to(d))
     wrapped = _per_device(devices, local,
                           lambda d: torch.from_numpy(wrap).to(d))
-    sentinel = _sentinels(devices, local, params, continuity, xsph,
-                          compute_energy)
+    fill = _fill(params, continuity, xsph, compute_energy)
 
     def tiers_of(ext):
         """Per tier ``(x, v, rho or None, live)`` of one shard's extended
@@ -532,21 +544,15 @@ def make_distributed_step_fn(
             energy = ([passes.energy(f) for f in fields] if compute_energy
                       else None)
 
-            # ... the core planes' results as one particle-order gather, and
-            # the integration
+            # ... the core planes' results to particle rows, and the
+            # integration
             new, a2 = [], []
             for i, d in enumerate(local):
-                cols = []
-                for t in range(n_tiers):
-                    col = [mom[i][t][core]]
-                    if not continuity:
-                        col += [rho_p[i][t][0][core, :, None],
-                                rho_p[i][t][1][core, :, None]]
-                    if compute_energy:
-                        col.append(energy[i][t][core, :, None])
-                    cols.append(torch.cat(col, dim=-1))
-                out = _gather(torch.cat(cols, dim=1), cells[i], local_grid, kd,
-                              sentinel[d])
+                with phase("mesh.rows"):
+                    out = _rows(mom[i], None if continuity else rho_p[i],
+                                energy[i] if compute_energy else None,
+                                cells[i], fill, local_grid, ext_grid,
+                                not use_kernels)
                 new.append(integrate(d, out, xs[i], vs[i], pids[i], alive[i],
                                      state.rho[i] if continuity else None,
                                      dts[i], a2))
@@ -705,20 +711,15 @@ def _check_state(state, devices, cap, continuity, distribute):
         )
 
 
-def _sentinels(devices, local, params, continuity, xsph, compute_energy):
-    """The gathered row of dropped and dead particles, one a shard of the
-    mesh (``None`` past this process's ``local`` shards): zero acc, drho,
-    dvc, p and du; rho0."""
+def _fill(params, continuity, xsph, compute_energy):
+    """The row of dropped and dead particles (:func:`_rows`): zero acc,
+    drho, dvc, p and du; rho0."""
     n_out = (3 + int(continuity) + 3 * int(xsph > 0)
              + 2 * int(not continuity) + int(compute_energy))
-
-    def sentinel_of(dev):
-        s = torch.zeros(n_out, dtype=torch.float32, device=dev)
-        if not continuity:
-            s[3 + 3 * int(xsph > 0)] = params.rho0
-        return s
-
-    return _per_device(devices, local, sentinel_of)
+    fill = [0.0] * n_out
+    if not continuity:
+        fill[3 + 3 * int(xsph > 0)] = float(params.rho0)
+    return tuple(fill)
 
 
 def _integrate_rows(out, x, v, pid, alive, rho_in, dt, params, gravity, lo,

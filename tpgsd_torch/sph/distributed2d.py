@@ -56,7 +56,7 @@ from .distributed import (
     _check_options,
     _check_state,
     _empty_buffers,
-    _gather,
+    _fill,
     _host,
     _insert,
     _integrate_rows,
@@ -65,8 +65,8 @@ from .distributed import (
     _pair_passes,
     _partition,
     _per_device,
+    _rows,
     _scatter,
-    _sentinels,
 )
 from .kernels import WendlandC2
 from .step import _floor_density, resolve_policy, tait_pressure
@@ -278,8 +278,7 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
         np.asarray(params.gravity, np.float32)).to(d))
     wrapped = _per_device(devices, local,
                           lambda d: torch.from_numpy(wrap).to(d))
-    sentinel = _sentinels(devices, local, params, continuity, xsph,
-                          compute_energy)
+    fill = _fill(params, continuity, xsph, compute_energy)
 
     def halo(cores):
         return _block_halo(cores, bdims, neighbours, xchg)
@@ -372,21 +371,13 @@ def _make_block_step(grid, params, mesh, n_decomposed, name, capacity=None,
         energy = ([passes.energy(f) for f in fields] if compute_energy
                   else None)
 
-        # stage 6: the core cells' results as one particle-order gather,
-        # and the integration
+        # stage 6: the core cells' results to particle rows, and the
+        # integration
         new, a2 = [], []
         for i, d in enumerate(local):
-            cols = []
-            for t in range(n_tiers):
-                col = [mom[i][t]]
-                if not continuity:
-                    col += [rho_p[i][t][0][..., None],
-                            rho_p[i][t][1][..., None]]
-                if compute_energy:
-                    col.append(energy[i][t][..., None])
-                cols.append(torch.cat(col, dim=-1))
-            out = _gather(core(torch.cat(cols, dim=1), 0), cells[i],
-                          local_grid, kd, sentinel[d])
+            out = _rows(mom[i], None if continuity else rho_p[i],
+                        energy[i] if compute_energy else None, cells[i], fill,
+                        local_grid, ext_grid, not use_kernels)
             new.append(integrate(d, out, xs[i], vs[i], pids[i], alive[i],
                                  state.rho[i] if continuity else None,
                                  dts[i], a2))

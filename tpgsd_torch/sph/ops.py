@@ -61,8 +61,17 @@ are independent.
 Dispatch rule: a tensor on the CPU takes the plain version; a CUDA
 tensor launches the kernel or raises.  There is no fallback.  Each
 wrapper adds one to :data:`launch_counts` where it launches its kernel.
+
+The finish of every step takes the pair passes' per-slot results to
+particle rows through :func:`slot_rows` (:func:`window_rows` a slab of
+the slab step): one launch of ``slot_rows_kernel``
+(``tpgsd_torch/csrc/slot_rows.cu``) on the card, counted apart from the
+pair kernels in :data:`row_launch_counts`, and :func:`slot_rows_plain`,
+the same copies as torch operations, on the CPU and in a step built
+with ``use_kernels=False``.
 """
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -114,9 +123,16 @@ launch_counts.update({
 })
 
 
+#: launches of ``slot_rows_kernel`` since the last
+#: :func:`reset_launch_counts`: one a finish of the global step, a slab of
+#: the slab step and a shard of a decomposed step
+row_launch_counts = {"slot_rows": 0}
+
+
 def reset_launch_counts():
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, row_launch_counts):
+        for key in counts:
+            counts[key] = 0
 
 
 def supported(grid):
@@ -1301,3 +1317,246 @@ def pair_ops(use_kernels, spill, continuity):
     return PairOps(*(names[n + suffix] for n in (
         "density", "accel_drho" if continuity else "accel", "energy",
         "st_normals", "st_force", "surface_tension")))
+
+
+# --------------------------------------------------------------------------
+# per-slot results to particle rows (the finish of every step)
+# --------------------------------------------------------------------------
+
+#: columns a row of :func:`slot_rows` may have (``csrc/slot_rows.cu``)
+MAX_ROW_COLUMNS = 16
+
+
+class CellMap(NamedTuple):
+    """Where a cell id of a cell list lies in the pair passes' planes:
+    cell ``c = (ix, iy, iz)`` of the cell list's grid is cell ``ix
+    plane_ext + iy nz_ext + iz + offset`` of the planes, clamped into
+    their ``n_ext`` cells (``same``: the grids share ny and nz, so that is
+    ``c + offset``)."""
+
+    plane_in: int
+    nz_in: int
+    plane_ext: int
+    nz_ext: int
+    offset: int
+    n_ext: int
+    same: bool
+
+
+@functools.lru_cache(maxsize=256)
+def cell_map(dims, ext_dims=None, offset=(0, 0, 0)):
+    """The :class:`CellMap` of a cell list on the grid ``dims`` whose cell
+    ``(0, 0, 0)`` is cell ``offset`` of the planes' grid ``ext_dims``
+    (default: the same grid): the core block of an extended grid, or a
+    slab's extended range (a negative x offset)."""
+    ext = tuple(dims if ext_dims is None else ext_dims)
+    plane_ext, nz_ext = ext[1] * ext[2], ext[2]
+    return CellMap(
+        plane_in=dims[1] * dims[2], nz_in=dims[2], plane_ext=plane_ext,
+        nz_ext=nz_ext,
+        offset=offset[0] * plane_ext + offset[1] * nz_ext + offset[2],
+        n_ext=ext[0] * plane_ext,
+        same=(dims[1], dims[2]) == (ext[1], ext[2]),
+    )
+
+
+def _columns(tier):
+    """A tier's column sources as ``[E, K]`` planes, the sources' columns
+    in order (a source is ``[E, K]`` or ``[E, K, m]``)."""
+    return [p for src in tier
+            for p in ((src,) if src.dim() == 2 else src.unbind(-1))]
+
+
+def slot_rows_plain(tiers, fill, order, cid, slot, cmap, row0=None,
+                    row1=None, n_rows=None, out=None):
+    """The twin of ``slot_rows_kernel`` in plain torch ops (the CPU's
+    path, and a plain step's on any device): the tiers' columns
+    concatenated into one per-slot bundle ``[E, kt, F]``, one gather of
+    each row's slot (a dropped row, slot ``>= kt``, takes ``fill``) and
+    the rows written to their particle rows of ``out``.  Arguments as
+    :func:`_rows`; returns ``(out, window rows)``."""
+    bundle = torch.cat(
+        [torch.stack(_columns(t), dim=-1) for t in tiers], dim=1)
+    kt, f = bundle.shape[1], bundle.shape[2]
+    n = order.shape[0]
+    fill_t = torch.tensor(fill, dtype=bundle.dtype, device=bundle.device)
+    if row0 is None:
+        c, s = cid[:n], slot[:n]
+    else:
+        rows = row0 + torch.arange(n_rows, device=order.device)
+        keep = rows < torch.clamp(row1, max=n)  # the window's own rows
+        rows = rows[keep]
+        c, s = cid[rows], slot[rows]
+    if cmap.same:
+        e = c
+    else:
+        ix = torch.div(c, cmap.plane_in, rounding_mode="floor")
+        rem = c - ix * cmap.plane_in
+        iy = torch.div(rem, cmap.nz_in, rounding_mode="floor")
+        e = ix * cmap.plane_ext + iy * cmap.nz_ext + (rem - iy * cmap.nz_in)
+    e = torch.clamp(e + cmap.offset, 0, cmap.n_ext - 1)
+    vals = bundle.reshape(-1, f)[e * kt + torch.clamp(s, 0, kt - 1)]
+    vals = torch.where((s < kt)[:, None], vals, fill_t)
+    if out is None:
+        out = vals.new_empty((n, f))
+    if row0 is None:
+        out[order] = vals  # the inverse permutation as a scatter
+        return out, vals
+    out[order[rows]] = vals
+    win = fill_t.expand(n_rows, f).clone()
+    win[keep] = vals
+    return out, win
+
+
+def _rows(tiers, fill, order, cid, slot, cmap, row0=None, row1=None,
+          n_rows=None, out=None, emit=False, plain=False):
+    """Sorted rows ``row0 + i`` (``row0`` a 0-d int64 tensor, or none:
+    every row), ``i < n_rows``, before ``row1`` (a 0-d int64 tensor, with
+    ``row0``) and ``n``, to their particle rows of ``out [n, F]`` (made
+    when ``None``); ``cid``/``slot`` hold each sorted row's cell id and
+    slot, ``order`` the sort.  Returns ``(out, window rows [n_rows, F] or
+    None)``; with ``emit`` the window rows are returned (the fill row
+    past ``row1``).  CUDA tensors launch ``slot_rows_kernel`` unless
+    ``plain``; otherwise :func:`slot_rows_plain` runs."""
+    if len(tiers) not in (1, 2):
+        raise ValueError("slot_rows takes 1 or 2 tiers; got %d" % len(tiers))
+    if len(fill) > MAX_ROW_COLUMNS:
+        raise ValueError("slot_rows takes at most %d columns; got %d"
+                         % (MAX_ROW_COLUMNS, len(fill)))
+    if (row0 is None) != (row1 is None):
+        raise ValueError("a window of slot_rows needs its first and its "
+                         "end row")
+    if plain or _on_cpu(order, cid, slot):
+        out, win = slot_rows_plain(tiers, fill, order, cid, slot, cmap, row0,
+                                   row1, n_rows, out)
+        return out, win if emit else None
+    return _launch_rows(tiers, fill, order, cid, slot, cmap, row0, row1,
+                        n_rows, out, emit)
+
+
+def _plane_pointers(tier, e, k, dev):
+    """The plane pointers of one tier's column sources: float32 on
+    ``dev``, each ``[E, K]`` contiguous or ``[E, K, m]`` laid out as ``m``
+    such planes (a permuted ``[m, E, K]`` SoA output)."""
+    ptrs = []
+    for src in tier:
+        planes = src.dim() == 2 and src.is_contiguous() or (
+            src.dim() == 3 and src.stride(0) == k and src.stride(1) == 1)
+        if (src.dtype != torch.float32 or src.device != dev
+                or tuple(src.shape[:2]) != (e, k) or not planes):
+            raise ValueError(
+                "slot_rows column sources must be float32 [%d, %d] planes "
+                "(or [%d, %d, m] views of [m, %d, %d]) on %s; got %s %s "
+                "strides %s on %s"
+                % (e, k, e, k, e, k, dev, src.dtype, tuple(src.shape),
+                   src.stride(), src.device))
+        if src.dim() == 2:
+            ptrs.append(src.data_ptr())
+            continue
+        base, step = src.data_ptr(), src.stride(2) * 4
+        ptrs.extend(base + j * step for j in range(src.shape[2]))
+    return ptrs
+
+
+def _launch_rows(tiers, fill, order, cid, slot, cmap, row0, row1, n_rows,
+                 out, emit):
+    """One launch of ``slot_rows_kernel``, counted in
+    :data:`row_launch_counts` (arguments as :func:`_rows`)."""
+    lib = _build.load()
+    dev = order.device
+    e, k = tiers[0][0].shape[:2]
+    if e != cmap.n_ext:
+        raise ValueError("slot_rows planes have %d cells; the cell map %d"
+                         % (e, cmap.n_ext))
+    ptrs = [_plane_pointers(t, e, k, dev) for t in tiers]
+    f = len(ptrs[0])
+    if any(len(p) != f for p in ptrs) or len(fill) != f:
+        raise ValueError(
+            "slot_rows tiers and fill must give the same columns; got %s and "
+            "%d" % ([len(p) for p in ptrs], len(fill)))
+    window = () if row0 is None else (row0, row1)
+    for t in (order, cid, slot) + window:
+        if t.dtype != torch.int64 or t.device != dev or not t.is_contiguous():
+            raise ValueError("slot_rows indices must be contiguous int64 on "
+                             "%s" % dev)
+    n = order.shape[0]
+    if (cid.shape != slot.shape or cid.dim() != 1 or cid.shape[0] < n
+            or any(t.dim() != 0 for t in window)):
+        raise ValueError(
+            "slot_rows needs %d sorted cell ids and slots (and a 0-d first "
+            "and end row for a window); got %s and %s"
+            % (n, tuple(cid.shape), tuple(slot.shape)))
+    if n_rows is None:
+        n_rows = n
+    if out is None:
+        out = torch.empty((n, f), dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (n, f)
+          or not out.is_contiguous() or out.device != dev):
+        raise ValueError("slot_rows out must be contiguous float32 [%d, %d] "
+                         "on %s" % (n, f, dev))
+    win = (torch.empty((n_rows, f), dtype=torch.float32, device=dev) if emit
+           else None)
+    arr = ctypes.c_void_p * MAX_ROW_COLUMNS
+    tier_b = ptrs[1] if len(ptrs) == 2 else ptrs[0]
+    window_ptrs = [t.data_ptr() for t in window] or [None, None]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpgsd_slot_rows(
+            cid.data_ptr(), slot.data_ptr(), order.data_ptr(),
+            *window_ptrs, n_rows, n, arr(*ptrs[0]), arr(*tier_b),
+            (ctypes.c_float * MAX_ROW_COLUMNS)(*fill), f, k, len(tiers),
+            cmap.plane_in, cmap.nz_in, cmap.plane_ext, cmap.nz_ext,
+            cmap.offset, cmap.n_ext, out.data_ptr(),
+            None if win is None else win.data_ptr(), stream)
+    _raise_on(lib, rc, "slot_rows")
+    row_launch_counts["slot_rows"] += int(n_rows > 0)
+    return out, win
+
+
+def slot_rows(tiers, fill, cells, dims, ext_dims=None, offset=(0, 0, 0),
+              plain=False):
+    """Each particle's row of the pair passes' per-slot results: ``[n,
+    F]`` float32 in the particle order of ``cells`` (a
+    :class:`~tpgsd_torch.sph.cells.CellList`: its ``order``, ``cid`` and
+    ``slot``).
+
+    ``tiers`` is one list of column sources a tier (the single tier, or
+    the two of the spill layout, slots ``< K`` and ``K .. 2K - 1``), each
+    source a float32 ``[E, K]`` plane or ``[E, K, m]`` (``m`` columns on
+    the last axis, such as a ``[C, K, F]`` view of the momentum pass's
+    SoA output); a row's columns are its tier's sources' columns in
+    order.  ``fill`` holds the ``F`` values of a particle whose slot lies
+    past the tiers (dropped by the cell list, or a dead slot of a
+    decomposed step): the sentinel row of the dense layout.  ``dims`` is
+    the grid of the cell ids; ``ext_dims`` and ``offset`` the planes'
+    grid and the cell of it that cell ``(0, 0, 0)`` is (default: the same
+    grid; a decomposed step's core block in its extended grid).
+
+    CUDA tensors launch ``slot_rows_kernel`` once, counted in
+    :data:`row_launch_counts`; CPU tensors, and ``plain`` (a step built
+    with ``use_kernels=False``), take :func:`slot_rows_plain`.  Both copy
+    the same values: the result is the one of concatenating the tiers and
+    columns with the sentinel row and gathering through the sort's
+    inverse permutation (:func:`~tpgsd_torch.sph.cells.
+    gather_from_cells`)."""
+    return _rows(tiers, tuple(fill), cells.order, cells.cid, cells.slot,
+                 cell_map(tuple(dims), ext_dims and tuple(ext_dims),
+                          tuple(offset)), plain=plain)[0]
+
+
+def window_rows(tiers, fill, out, order, cid, slot, p0, p1, n_rows, dims,
+                ext_dims, offset, emit=False, plain=False):
+    """The slab step's form of :func:`slot_rows`: the window of sorted rows
+    ``p0 .. p0 + n_rows - 1`` (``p0`` a 0-d int64 device tensor), those
+    before ``p1`` (the next slab's first row, a 0-d int64 device tensor)
+    each written to its particle row of ``out [n, F]``; rows from ``p1``
+    on are the later slabs' own and are not written.  The planes' grid
+    ``ext_dims`` is the slab's extended range, cell ``offset`` of it the
+    domain's cell ``(0, 0, 0)``, and a row's cell is clamped into it.
+    Returns the window's rows ``[n_rows, F]`` in window order with
+    ``emit`` (the slab's frame rows, the fill row from ``p1`` on), else
+    ``None``; ``plain`` as in :func:`slot_rows`."""
+    return _rows(tiers, tuple(fill), order, cid, slot,
+                 cell_map(tuple(dims), tuple(ext_dims), tuple(offset)),
+                 row0=p0, row1=p1, n_rows=int(n_rows), out=out, emit=emit,
+                 plain=plain)[1]

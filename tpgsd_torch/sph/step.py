@@ -40,7 +40,6 @@ from .cells import (
     build_cells,
     build_cells_spill,
     cell_bounds,
-    gather_from_cells,
     neighbor_table,
     scatter_to_cells_soa,
     wrap_axes,
@@ -526,12 +525,10 @@ def density_and_pressure(x, grid, params, kernel=WendlandC2, periodic=False,
         cells, sp = build_cells_spill(x, grid, k)
         x_a = scatter_to_cells_soa(x, cells, grid)
         x_b = scatter_to_cells_soa(x, cells, grid, slot_base=k, capacity=k)
-        rho_a, rho_b = ops.density_spill(
+        tiers = zip(ops.density_spill(
             x_a, cells.mask, x_b, sp.mask, grid, params, kernel=kernel,
             wrap_axes=wrap,
-        )
-        rho_dense = torch.cat([rho_a, rho_b], dim=1)  # [C, 2K]
-        mask = torch.cat([cells.mask[:c], sp.mask[:c]], dim=1)
+        ), (cells.mask[:c], sp.mask[:c]))
     else:
         cells = build_cells(x, grid)
         dense_x = scatter_to_cells_soa(x, cells, grid)
@@ -546,14 +543,12 @@ def density_and_pressure(x, grid, params, kernel=WendlandC2, periodic=False,
                 neighbor_index(grid, dev, bool(periodic)), params, kernel,
                 minimum_image(grid, dev, bool(periodic)),
             )
+        tiers = ((rho_dense, mask),)
     if density_renorm:
-        rho_dense = torch.where(
-            mask, _renormalize_density(rho_dense, params), rho_dense
-        )
-    sent = rho_dense.new_full((1, rho_dense.shape[1]), params.rho0)
-    rho = gather_from_cells(
-        torch.cat([rho_dense, sent]), cells, grid, capacity=rho_dense.shape[1]
-    )
+        tiers = [(torch.where(m, _renormalize_density(r, params), r), m)
+                 for r, m in tiers]
+    rho = ops.slot_rows([[r] for r, _ in tiers], (float(params.rho0),),
+                        cells, grid.dims, plain=not use_kernels)[:, 0]
     rho = torch.clamp(rho, min=0.1 * params.rho0)  # isolated-particle floor
     return rho, tait_pressure(rho, params)
 
@@ -628,8 +623,8 @@ def energy_rate(state, grid, params, kernel=WendlandC2, periodic=False,
     else:
         du = _energy_blocks(xv[:3], xv[3:], rho, p, m, xv[:3], xv[3:], rho,
                             p, m, nbr, params, kernel, mimage)
-    return gather_from_cells(torch.cat([du, du.new_zeros((1, du.shape[1]))]),
-                             cells, grid)
+    return ops.slot_rows([[du]], (0.0,), cells, grid.dims,
+                         plain=not use_kernels)[:, 0]
 
 
 def _wrap_tuple(grid, periodic):
@@ -761,23 +756,23 @@ def make_step_fn(
     wrapped_axes = torch.from_numpy(wrap_axes(grid, periodic)).to(dev)
 
     def _finish(x, v, out, overflow, dt, rho_cur=None):
-        """Integrate/boundary tail: ``out`` is the per-particle gathered
-        bundle [acc3 | rho | p | (xsph dv3)] (summation mode) or [acc3 |
-        drho | (xsph dv3)] (continuity mode, with the prior density as
+        """Integrate/boundary tail: ``out`` holds the per-particle rows
+        [acc3 | (xsph dv3) | rho | p] (summation mode) or [acc3 | drho |
+        (xsph dv3)] (continuity mode, with the prior density as
         ``rho_cur``); ``dt`` is ``params.dt`` or a 0-d device tensor."""
         acc = out[:, :3] + gravity
         if continuity:
-            # dropped particles gather drho = 0 from the sentinel row and
-            # keep their carried density
+            # dropped particles read drho = 0 (the fill row) and keep
+            # their carried density
             rho, p = _carried_density(rho_cur, out[:, 3], dt, params)
         else:
-            rho = out[:, 3]
-            p = out[:, 4]
+            rho = out[:, -2]
+            p = out[:, -1]
         drift_dv = None
         if xsph > 0:
             # XSPH smooths the drift velocity only; the kick and the
             # bounce keep v_new
-            drift_dv = xsph * (out[:, 4:7] if continuity else out[:, 5:8])
+            drift_dv = xsph * (out[:, 4:7] if continuity else out[:, 3:6])
         x_new, v_new = _integrate(x, v, acc, dt, params, lo, hi, drift_dv,
                                   wrapped_axes if periodic else None)
 
@@ -799,26 +794,20 @@ def make_step_fn(
         real cells of ``mask``."""
         return _floor_density(rho, mask[:c], params, density_renorm)
 
-    def gather_bundle(bundle, cells):
-        """One particle-order gather of the per-slot ``[C, kc, F]`` bundle
-        (kc = slots of all tiers): acc3 | rho | p, or acc3 | drho in
-        continuity mode.  Dropped particles read the sentinel row: zero
-        acc, p and drho (they keep their carried density), rho0."""
-        sent = bundle.new_zeros((1,) + tuple(bundle.shape[1:]))
-        if not continuity:
-            sent[..., 3] = params.rho0
-        return gather_from_cells(
-            torch.cat([bundle, sent]), cells, grid, capacity=bundle.shape[1]
-        )
+    # the fill row of a dropped particle: zero acc, p, drho and XSPH
+    # correction (it keeps its carried density), rho0
+    n_cols = (4 if continuity else 5) + 3 * (xsph > 0)
+    fill = (0.0,) * n_cols if continuity else (0.0,) * (n_cols - 2) + (
+        float(params.rho0), 0.0)
 
-    def to_particles(acc, rho, p, cells):
-        """:func:`gather_bundle` of the per-slot ``[C, kc, 3]`` acc (``[C,
-        kc, 6]`` with the XSPH correction as columns 3-5) and ``[C, kc]``
-        rho and p."""
-        cols = [acc[..., :3], rho[..., None], p[..., None]]
-        if xsph > 0:
-            cols.append(acc[..., 3:])
-        return gather_bundle(torch.cat(cols, dim=-1), cells)
+    def to_particles(tiers, cells):
+        """Each particle's row of the per-slot results (:func:`ops.
+        slot_rows`), one column source list a tier: [acc3 | (xsph dv3) |
+        rho | p], or the momentum pass's [acc3 | drho | (xsph dv3)] in
+        continuity mode; inside the ``step.rows`` range."""
+        with phase("step.rows"):
+            return ops.slot_rows(tiers, fill, cells, grid.dims,
+                                 plain=not use_kernels)
 
     def _check(state):
         if state.x.device != dev:
@@ -840,7 +829,8 @@ def make_step_fn(
         """The step of ``body(state, dt)``: the state checked, under
         ``torch.inference_mode()``, inside the ``step`` range whose
         children the body opens (``step.cells``, ``step.density``,
-        ``step.momentum``, ``step.surface_tension``, ``step.finish``)."""
+        ``step.momentum``, ``step.surface_tension``, ``step.finish`` with
+        ``step.rows`` inside it)."""
 
         @torch.inference_mode()
         def run(state, dt=params.dt):
@@ -884,7 +874,7 @@ def make_step_fn(
                     out_a[..., :3] += st_a
                     out_b[..., :3] += st_b
             with phase("step.finish"):
-                out = gather_bundle(torch.cat([out_a, out_b], dim=1), cells)
+                out = to_particles([[out_a], [out_b]], cells)
                 return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
 
         return step_continuity_spill
@@ -924,12 +914,8 @@ def make_step_fn(
                     acc_a[..., :3] += st_a
                     acc_b[..., :3] += st_b
             with phase("step.finish"):
-                out = to_particles(
-                    torch.cat([acc_a, acc_b], dim=1),  # [C, 2K, 3 (+3 xsph)]
-                    torch.cat([rho_a, rho_b], dim=1),
-                    torch.cat([p_a, p_b], dim=1),
-                    cells,
-                )
+                out = to_particles([[acc_a, rho_a, p_a], [acc_b, rho_b, p_b]],
+                                   cells)
                 return _finish(x, v, out, cells.overflow, dt)
 
         return step_spill
@@ -971,7 +957,7 @@ def make_step_fn(
                 with phase("step.surface_tension"):
                     out4[:3] += surface_tension_pass(xvr[:3], rho_d, m)
             with phase("step.finish"):
-                out = gather_bundle(out4.permute(1, 2, 0), cells)
+                out = to_particles([[out4.permute(1, 2, 0)]], cells)
                 return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
 
         return step_continuity
@@ -992,7 +978,7 @@ def make_step_fn(
             with phase("step.surface_tension"):
                 acc[:3] += surface_tension_pass(dense_x, rho, m)
         with phase("step.finish"):
-            out = to_particles(acc.permute(1, 2, 0), rho, p, cells)
+            out = to_particles([[acc.permute(1, 2, 0), rho, p]], cells)
             return _finish(x, v, out, cells.overflow, dt)
 
     return step
