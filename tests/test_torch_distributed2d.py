@@ -53,7 +53,7 @@ from tpgsd_torch.sph.convert import (
     params_from_reference,
     state_from_numpy,
 )
-from tpgsd_torch.sph.distributed2d import _block_neighbours, _migrate_axis
+from tpgsd_torch.sph.distributed import _block_neighbours, _migrate_axis
 
 CPU = "cpu"
 #: ROADMAP's one-step tolerances of the port against the reference

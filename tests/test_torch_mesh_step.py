@@ -9,7 +9,8 @@ configuration's limits; the module's pid-ordered views are held to
 ``collect_state`` / ``collect_aux`` of the step it wraps; the exchange's
 counters to the bytes of the halo planes and migrant buffers; and the
 ``mesh.*`` phase ranges to their nesting, with no bit of the output
-changed by them.  The test marked ``cuda`` holds the step on two or more
+changed by them, in this step and in the 2-D block step that shares its
+engine.  The test marked ``cuda`` holds the step on two or more
 cards to the same shards on ``cuda:0``.
 """
 
@@ -30,11 +31,13 @@ if str(REPO) not in sys.path:
 from portbench import compare, inputs  # noqa: E402
 from portbench.reference import sph_summation as ref  # noqa: E402
 from portbench.systems import mesh_step  # noqa: E402
-from tpgsd_torch.parallel import exchange, make_mesh  # noqa: E402
+from tpgsd_torch.parallel import exchange, make_mesh, make_mesh2d  # noqa: E402
 from tpgsd_torch.sph import (  # noqa: E402
     collect_aux,
     collect_state,
     dam_break,
+    distribute_state_2d,
+    make_distributed2d_step_fn,
     make_distributed_step_fn,
 )
 from tpgsd_torch.utils import get_tracer  # noqa: E402
@@ -151,7 +154,7 @@ def test_exchange_counts_the_planes_and_migrant_buffers_of_a_step(cfg, run):
     prog.step(states[0])
     k = cfg["grid"]["capacity"]
     nx, ny, nz = cfg["grid"]["cells"]
-    plane = nx * nz  # a y plane of cells, as the swapped step's x plane
+    plane = nx * nz  # a y plane of cells
     mig_cap = CAP // 4
     faces = 2 * (4 - 1)  # messages a stage between four slabs in a row
     per_face = (plane * k * (7 + 2) * 4  # x | v | live, then rho | p
@@ -179,15 +182,48 @@ def _ranges(fn):
         key=lambda r: r[1])
 
 
-def test_mesh_ranges_nest_in_the_step_and_change_no_bit(run):
+def _y_slab_step(cfg, run):
+    """The cell's own step: ``(step, shards)``, ``step()`` -> its output
+    tensors."""
     prog, states, _ = run
+
+    def step():
+        s, a = prog.step(states[0])
+        return [s.x, s.v, a[0].full(), a[1].full(), *s.dist.pid]
+
+    return step, len(states[0].dist.pid)
+
+
+def _block_step(cfg, run):
+    """The same state stepped by the 2-D (2, 2) block form on four CPU
+    shards."""
+    _, states, _ = run
+    db = dam_break(n_side=N_SIDE, capacity=cfg["grid"]["capacity"],
+                   device="cpu")
+    mesh = make_mesh2d(shape=(2, 2), devices=["cpu"] * 4)
+    dist, cap = distribute_state_2d(
+        db.state._replace(x=states[0].x, v=states[0].v), db.grid, mesh)
+    block_step = make_distributed2d_step_fn(db.grid, db.params, mesh,
+                                            capacity=cap)
+
+    def step():
+        d, a = block_step(dist)
+        return [*d.x, *d.v, *d.pid, *a.rho, *a.p]
+
+    return step, mesh.size
+
+
+@pytest.mark.parametrize("form", [_y_slab_step, _block_step],
+                         ids=["y-slab", "2d"])
+def test_mesh_ranges_nest_in_the_step_and_change_no_bit(form, cfg, run):
+    step, shards = form(cfg, run)
     tracer = get_tracer()
     assert not tracer.enabled
-    (s_off, a_off), off = _ranges(lambda: prog.step(states[0]))
+    out_off, off = _ranges(step)
     assert off == []
     tracer.enable(keep_events=True)
     try:
-        (s_on, a_on), on = _ranges(lambda: prog.step(states[0]))
+        out_on, on = _ranges(step)
     finally:
         tracer.disable()
         tracer.events.clear()
@@ -199,12 +235,10 @@ def test_mesh_ranges_nest_in_the_step_and_change_no_bit(run):
     # one range of the per-slot results to particle rows a shard, inside
     # the momentum stage that takes them
     (mom,) = [r for r in kids if r[0] == "mesh.momentum"]
-    assert len(rows) == len(states[0].dist.pid)
+    assert len(rows) == shards
     assert all(mom[1] <= r[1] and r[2] <= mom[2] for r in rows)
-    for a, b in zip([s_off.x, s_off.v, a_off[0].full(), a_off[1].full()],
-                    [s_on.x, s_on.v, a_on[0].full(), a_on[1].full()]):
-        assert torch.equal(a, b)
-    for a, b in zip(s_off.dist.pid, s_on.dist.pid):
+    assert len(out_off) == len(out_on)
+    for a, b in zip(out_off, out_on):
         assert torch.equal(a, b)
 
 

@@ -24,8 +24,7 @@ from tpgsd_torch.sph.cells import (
     gather_from_cells,
     sorted_runs,
 )
-from tpgsd_torch.sph.distributed import _fill, _local_cells, _rows
-from tpgsd_torch.sph.distributed2d import _block_core
+from tpgsd_torch.sph.distributed import _block_core, _fill, _local_cells, _rows
 
 RHO0 = 1000.0
 
@@ -288,7 +287,8 @@ def _decomposed(name):
     local_grid = ext_grid._replace(dims=bdims)
     got = _rows(mom, None if continuity else rho_p, du if energy else None,
                 cells, fill, local_grid, ext_grid)
-    core = _block_core(torch.cat(bundled, dim=1), edims, n_dec, 0)
+    core = _block_core(torch.cat(bundled, dim=1), edims,
+                       tuple(range(n_dec)), 0)
     sent = torch.tensor(fill).expand(1, n_tiers * k, len(fill))
     want = gather_from_cells(torch.cat([core, sent]), cells, local_grid,
                              capacity=n_tiers * k)

@@ -1,16 +1,24 @@
-"""Slab domain decomposition of the SPH step over a device mesh, with
-halo exchange and particle migration (torch counterpart of
-``tpgsd.sph.distributed``).
+"""Domain decomposition of the SPH step over a device mesh, with halo
+exchange and particle migration (torch counterpart of
+``tpgsd.sph.distributed``, ``distributed2d`` and ``distributed3d``).
 
-The domain is cut into contiguous x-slabs, one a shard of a 1-D
-:class:`~tpgsd_torch.parallel.Mesh` (the linear cell index is x-major,
-so a slab is a contiguous cell range).  Each shard owns the particles in
-its slab, in ``cap`` slots with a ``pid`` (-1 for a dead slot), and a
-step communicates only
+One staged engine steps every decomposition: the mesh cuts a set of
+grid axes into blocks, one a shard, and each shard owns the particles in
+its block, in ``cap`` slots with a ``pid`` (-1 for a dead slot).  The
+slab step (:func:`make_distributed_step_fn`) cuts x or y
+(``decomp_axis``) over a 1-D :class:`~tpgsd_torch.parallel.Mesh`; the
+2-D and 3-D block steps (:mod:`tpgsd_torch.sph.distributed2d`,
+:mod:`tpgsd_torch.sph.distributed3d`) cut x and y, or x, y and z, over
+a block mesh (shard ``i * py + j`` owns block ``(i, j)``).  A step
+communicates only
 
-* one cell plane of boundary data to each x-neighbour, and
-* the particles that crossed a slab face (migration buffers of at most
-  ``migrate_cap`` rows a face).
+* one cell layer of boundary data across each block face, exchanged one
+  decomposed axis at a time, innermost first, so the edge and corner
+  cells ride along with the faces exchanged later, and
+* the particles that left their block (migration buffers of at most
+  ``migrate_cap`` rows a face), in one hop a decomposed axis in axis
+  order: a particle received on the x hop takes part in the y hop of the
+  same step, so a diagonal (corner) mover arrives in one step.
 
 No global sort and no gather of the whole state.
 
@@ -19,30 +27,36 @@ exchanges with ``lax.ppermute``, a collective.  Here each process drives
 its shards of the mesh (every shard, with one process; its own, with one
 process per rank: ``make_mesh(comm=...)``) from a Python loop, and the
 exchanges go through :class:`~tpgsd_torch.parallel.exchange.Exchange`: a
-copy of a neighbour's planes to the receiving shard's device (a no-op
+copy of a neighbour's layers to the receiving shard's device (a no-op
 view when both shards share a device, as they do on a one-GPU machine)
 between two shards of one process, a message between processes.  So the
 step runs in stages, each over every shard before the next reads a
-neighbour's output: (1) the local cell build and the dense tiers, (2) the
-halo exchange, (3) the density pass and the exchange of the owners'
-density and pressure (summation mode), (4) the momentum pass (with the
-options) and the integration, (5) packing the migrants, (6) their
-exchange and insertion.  Every stage makes new tensors and none writes
-its inputs, so no shard reads a neighbour's new state where the
-reference reads the old one.  The ends of a non-periodic mesh receive
-zero planes, as ``ppermute`` gives to unnamed targets; the zeroed live
-mask makes them empty ghosts.  A periodic mesh is a ring.
+neighbour's output: (1) the local cell build and the dense tiers, (2)
+the halo, (3) the density pass and the exchange of the owners' density
+and pressure (summation mode), (4) the momentum pass (with the owners'
+surface-tension normals exchanged before the force pass), the rows and
+the integration, (5) each migration hop: packing, exchange and
+insertion.  Every stage makes new tensors and none writes its inputs,
+so no shard reads a neighbour's new state where the reference reads the
+old one.  The ends of a non-periodic axis receive zeros, as
+``ppermute`` gives to unnamed targets; the zeroed live mask makes them
+empty ghosts.  A periodic decomposed axis is a ring (of 1 or 2 shards
+too, which exchange with themselves or with their one neighbour both
+ways), and after the whole halo the ghost layers across a seam are
+shifted by the box length, the corner columns received from another
+axis included; the other axes wrap locally, in the pair passes' own
+ghost halo (the kernels) or wrapped table (the plain passes).
 
-Each shard lays its particles out on the extended grid of its slab (its
-``nxl`` planes and one ghost plane each side) and runs the unchanged
+Each shard lays its particles out on the extended grid of its block (a
+ghost layer each side of every decomposed axis) and runs the unchanged
 pair passes of :mod:`tpgsd_torch.sph.ops` there: the CUDA kernels when
 its tensors are on the card, the plain passes on the CPU or with
 ``use_kernels=False``.  The two-tier spill layout is built and exchanged
 as two tiers, so each reaches the kernels as contiguous ``[3, C, K]``
-planes.
+planes.  ``pid`` stays an integer column of every migration payload.
 
 Capacity model (static shapes): each shard holds ``cap`` particle
-slots, and at most ``migrate_cap`` particles cross a face a step;
+slots, and at most ``migrate_cap`` particles cross a face a hop a step;
 overflow is counted, never silent.  Send-side overflow keeps the
 particle alive locally one more step (a delay, not a loss); receive-side
 overflow (no free slot for an arriving migrant) loses it and is counted
@@ -159,36 +173,6 @@ def _rows(mom, rho_p, energy, cells, fill, local_grid, ext_grid,
                          offset, plain=plain)
 
 
-def _neighbours(d, n_shards, ring):
-    """``(left, right)`` shard of shard ``d`` (``None`` past a
-    non-periodic end)."""
-    left = d - 1 if d > 0 else (n_shards - 1 if ring else None)
-    right = d + 1 if d < n_shards - 1 else (0 if ring else None)
-    return left, right
-
-
-def _halo_exchange(cores, nynz, ring, xchg):
-    """Append each x-neighbour's boundary cell plane as ghost planes.
-
-    ``cores``: one ``[..., c, K]`` tensor a shard of this process (cell
-    axis -2).  Returns the extended ``[..., nynz + c + nynz, K]`` tensors,
-    contiguous.  The left ghost of shard ``d`` is the last plane of shard
-    ``d - 1``, its right ghost the first plane of shard ``d + 1`` (through
-    ``xchg``, an :class:`~tpgsd_torch.parallel.exchange.Exchange`); past a
-    non-periodic end the ghost is zeros, on a ring the far end's plane."""
-    c = cores[0].shape[-2]
-    got = xchg([{"L": a[..., c - nynz:c, :], "R": a[..., 0:nynz, :]}
-                for a in cores],
-               [dict(zip("LR", _neighbours(d, xchg.size, ring)))
-                for d in range(xchg.size)])
-    out = []
-    for a, g in zip(cores, got):
-        ghosts = [a.new_zeros(a.shape[:-2] + (nynz, a.shape[-1]))
-                  if g[key] is None else g[key] for key in "LR"]
-        out.append(torch.cat([ghosts[0], a, ghosts[1]], dim=-2))
-    return out
-
-
 def _pack_migrants(values, send_mask, cap):
     """Pack the rows of each of ``values`` (``[n, ...]`` tensors) where
     ``send_mask`` into ``[cap, ...]`` buffers, in row order (the rank is
@@ -238,12 +222,126 @@ def _insert(values, alive, recv_vals, recv_valid):
     return merged, lost
 
 
-#: column permutation swapping the x and y axes of ``[N, 3]`` arrays
-_PERM01 = (1, 0, 2)
+def _block_neighbours(index, shape, axis, ring):
+    """``(bwd, fwd)``: the shards before and after the block at
+    ``index`` along mesh axis ``axis`` of a mesh of ``shape`` (``None``
+    past a non-periodic end; on a ring of 1 both are the block itself)."""
+    def at(j):
+        if not 0 <= j < shape[axis]:
+            if not ring:
+                return None
+            j %= shape[axis]
+        idx = list(index)
+        idx[axis] = j
+        return int(np.ravel_multi_index(idx, shape))
+
+    return at(index[axis] - 1), at(index[axis] + 1)
 
 
-def _swap01_tuple(t):
-    return (t[1], t[0], t[2])
+def _halo_axis(cores, axis, neighbours, xchg):
+    """One axis of the ordered halo: each of ``cores`` (one tensor a
+    shard of this process, the cell axes unflattened, ``axis`` the tensor
+    axis of the block axis) gains its ``bwd`` neighbour's last layer
+    before and its ``fwd`` neighbour's first layer after (zeros past a
+    non-periodic end), through ``xchg`` -> the extended tensors."""
+    n = cores[0].shape[axis]
+    got = xchg([{"bwd": a.narrow(axis, n - 1, 1), "fwd": a.narrow(axis, 0, 1)}
+                for a in cores],
+               [dict(zip(("bwd", "fwd"), nb)) for nb in neighbours])
+    out = []
+    for a, g in zip(cores, got):
+        ghosts = []
+        for key in ("bwd", "fwd"):
+            if g[key] is None:
+                shape = list(a.shape)
+                shape[axis] = 1
+                ghosts.append(a.new_zeros(shape))
+            else:
+                ghosts.append(g[key])
+        out.append(torch.cat([ghosts[0], a, ghosts[1]], dim=axis))
+    return out
+
+
+def _block_halo(cores, dims, axes, neighbours, xchg):
+    """The ordered halo of ``[..., c, K]`` tensors (one a shard of this
+    process, ``c`` the ``dims`` block's cells, x-major) -> the ``[...,
+    c_ext, K]`` extended tensors, contiguous.  ``neighbours[i][d]`` is
+    shard ``d``'s ``(bwd, fwd)`` along the decomposed grid axis
+    ``axes[i]``; the innermost decomposed axis goes first, so each later
+    axis carries the earlier ghosts."""
+    lead = cores[0].shape[:-2]
+    k = cores[0].shape[-1]
+    cur = [a.reshape(lead + tuple(dims) + (k,)) for a in cores]
+    for i in reversed(range(len(axes))):
+        cur = _halo_axis(cur, len(lead) + axes[i], neighbours[i], xchg)
+    return [a.reshape(lead + (-1, k)) for a in cur]
+
+
+def _block_core(a, ext_dims, axes, axis):
+    """The block's own cells of ``a``'s extended cell axis ``axis`` (the
+    ghost layer cut from each end of the decomposed grid axes
+    ``axes``)."""
+    axis %= a.dim()
+    v = a.reshape(a.shape[:axis] + tuple(ext_dims) + a.shape[axis + 1:])
+    for i in axes:
+        v = v.narrow(axis + i, 1, ext_dims[i] - 2)
+    return v.reshape(a.shape[:axis] + (-1,) + a.shape[axis + 1:])
+
+
+def _migrate_axis(rows, axis, neighbours, bounds, ring, lo, period, mig_cap,
+                  xchg):
+    """One migration hop along the decomposed grid ``axis``, over every
+    shard of this process (``xchg.local``; ``neighbours`` and ``bounds``
+    are indexed by the mesh's shard).
+
+    ``rows[i] = (vals [cap, F] float32, pid [cap] int32, overflow)``, of
+    shard ``xchg.local[i]``:
+    ``vals`` holds x | v | (rho) with the raw coordinate of every
+    decomposed axis.  A row whose coordinate left ``bounds[d] = (lo,
+    hi)`` of its block goes to the neighbour that way (not past a
+    non-periodic end); the sent copy wraps the hop's own coordinate on a
+    ring (``lo + remainder(coord - lo, period)``), a row kept back by
+    send-side overflow keeps its raw one.  Every shard packs before any
+    inserts, and a shard inserts its ``bwd`` neighbour's migrants before
+    its ``fwd`` one's: returns the new ``rows``, each overflow grown by
+    the send-side overflow and the receive-side losses."""
+    packs = []
+    for d, (vals, pid, _ovf) in zip(xchg.local, rows):
+        alive = pid >= 0
+        coord = vals[:, axis]
+        go = [alive & (coord < bounds[d][0]), alive & (coord >= bounds[d][1])]
+        go = [g if n is not None else torch.zeros_like(g)
+              for g, n in zip(go, neighbours[d])]
+        send = vals
+        if ring:
+            wrapped = lo + torch.remainder(coord - lo, period)
+            send = torch.cat([vals[:, :axis], wrapped[:, None],
+                              vals[:, axis + 1:]], dim=1)
+        bufs, sent, ovf = [], [], 0
+        for g in go:
+            buf, valid, o, s = _pack_migrants([send, pid], g, mig_cap)
+            bufs.append(buf + [valid])
+            sent.append(s)
+            ovf = ovf + o
+        pid_after = torch.where(sent[0] | sent[1], -1, pid)
+        alive_after = pid_after >= 0
+        keep = torch.where(alive_after[:, None], vals, 0.0)
+        packs.append((bufs, (keep, pid_after, alive_after, ovf)))
+
+    # from the bwd neighbour its fwd buffer, from the fwd one its bwd
+    got = xchg([{"bwd": bufs[1], "fwd": bufs[0]} for bufs, _keep in packs],
+               [dict(zip(("bwd", "fwd"), nb)) for nb in neighbours])
+    out = []
+    for (_vals, _pid, ovf), (_bufs, kept), g in zip(rows, packs, got):
+        keep, keep_pid, alive_after, send_ovf = kept
+        recv = [_empty_buffers(keep, keep_pid) if g[key] is None else g[key]
+                for key in ("bwd", "fwd")]
+        (vals, pid_out), lost = _insert(
+            [keep, keep_pid], alive_after,
+            [torch.cat([r[0] for r in recv]), torch.cat([r[1] for r in recv])],
+            torch.cat([r[2] for r in recv]))
+        out.append((vals, pid_out, ovf + send_ovf + lost))
+    return out
 
 
 def concat_shards(tensors):
@@ -303,7 +401,6 @@ def make_distributed_step_fn(
     density_mode="summation",
     delta_sph=0.1,
     _traced_dt=False,
-    _ranged=True,
 ):
     """Build the slab-decomposed step over ``mesh``.
 
@@ -312,8 +409,9 @@ def make_distributed_step_fn(
             ``grid.dims[decomp_axis]`` must be a multiple of the mesh
             size (each shard owns that many planes of cells).
         params: :class:`~tpgsd_torch.sph.SPHParams`.
-        mesh: :class:`~tpgsd_torch.parallel.Mesh`; the states the step
-            takes lie on its devices, shard ``d`` on ``mesh.devices[d]``.
+        mesh: a 1-D :class:`~tpgsd_torch.parallel.Mesh`; the states the
+            step takes lie on its devices, shard ``d`` on
+            ``mesh.devices[d]``.
         capacity: particle slots a shard (required;
             :func:`distribute_state` returns its choice).
         migrate_cap: migrations a face a step (default ``capacity // 4``,
@@ -328,17 +426,16 @@ def make_distributed_step_fn(
             state given to :func:`distribute_state`) are static boundary
             particles: density and pressure sources that never move and
             never migrate.
-        periodic: periodic box.  x wraps through the ring of shards
-            (shard S-1 exchanges planes and migrants with shard 0, whose
-            ghost positions are shifted by the box length); y and z wrap
-            locally, as the pair passes' own ghost halo (the kernels) or
-            wrapped neighbour table (the plain passes), on axes with at
-            least 3 cells.
+        periodic: periodic box.  The slab axis wraps through the ring of
+            shards (shard S-1 exchanges planes and migrants with shard 0,
+            whose ghost positions are shifted by the box length); the
+            other two axes wrap locally, as the pair passes' own ghost
+            halo (the kernels) or wrapped neighbour table (the plain
+            passes), on axes with at least 3 cells.
         compute_energy: also run the WCSPH energy equation on the
             exchanged density and pressure and return du/dt in
             ``aux.dudt`` (zeros when off).
-        decomp_axis: 0 (x-slabs) or 1 (y-slabs: the x machinery on the
-            axis-swapped problem).
+        decomp_axis: 0 (x-slabs) or 1 (y-slabs).
         xsph / density_renorm / surface_tension / density_mode /
             delta_sph / kernel: as in :func:`tpgsd_torch.sph.make_step_fn`.
             The density floor and renormalisation act on the owners'
@@ -349,7 +446,8 @@ def make_distributed_step_fn(
             :func:`tpgsd_torch.sph.init_density` before
             :func:`distribute_state`), so one fused exchange of
             x | v | rho | live replaces summation's two, and migrants
-            carry their density.
+            carry their density.  The velocity kick applies
+            ``params.velocity_damping``, as the global step does.
 
     Returns:
         ``step(state, dt=params.dt) -> (DistState, DistAux)``, carrying
@@ -358,95 +456,141 @@ def make_distributed_step_fn(
         With the tracer enabled (:func:`tpgsd_torch.utils.get_tracer`)
         it opens the range ``mesh.step`` and, nested in it, one range a
         stage over every shard: ``mesh.cells`` (cell build and dense
-        tiers), ``mesh.halo`` (the exchange of the boundary planes),
+        tiers), ``mesh.halo`` (the exchange of the boundary layers),
         ``mesh.density`` (the density pass and, in summation mode, the
         exchange of the owners' density and pressure), ``mesh.momentum``
         (the momentum pass, the options, the rows to particles, a
         ``mesh.rows`` range a shard, and the integration) and
-        ``mesh.migrate`` (packing, exchanging and inserting the migrants);
-        with ``decomp_axis=1`` ``mesh.step`` holds the axis swaps too.
-        Each step counts one in :data:`~tpgsd_torch.parallel.exchange.
-        stats` (``steps``).  (With the private ``_traced_dt=True`` it
-        returns ``(state, aux, a2max)``, ``a2max`` one 0-d tensor a
-        shard: the largest ``|a|^2`` of its mobile particles, for
+        ``mesh.migrate`` (packing, exchanging and inserting the
+        migrants); every decomposition opens the same ranges.  Each step
+        counts one in :data:`~tpgsd_torch.parallel.exchange.stats`
+        (``steps``).  (With the private ``_traced_dt=True`` it returns
+        ``(state, aux, a2max)``, ``a2max`` one 0-d tensor a shard: the
+        largest ``|a|^2`` of its mobile particles, for
         :func:`make_adaptive_distributed_step_fn`.)
     """
-    if decomp_axis == 1:
-        return _swapped_step(
-            grid, params, mesh, capacity=capacity, migrate_cap=migrate_cap,
-            kernel=kernel, use_kernels=use_kernels, n_fixed=n_fixed,
-            periodic=periodic, compute_energy=compute_energy, xsph=xsph,
-            density_renorm=density_renorm, surface_tension=surface_tension,
-            spill=spill, density_mode=density_mode, delta_sph=delta_sph,
-            _traced_dt=_traced_dt,
-        )
-    if decomp_axis != 0:
+    if decomp_axis not in (0, 1):
         raise ValueError("decomp_axis must be 0 or 1, got %r" % (decomp_axis,))
+    n = grid.dims[decomp_axis]
+    if n % mesh.size != 0:
+        raise ValueError(
+            "grid n%s=%d must be a multiple of the mesh size %d"
+            % ("xy"[decomp_axis], n, mesh.size)
+        )
+    return _decomposed_step(
+        grid, params, mesh, (decomp_axis,), capacity=capacity,
+        migrate_cap=migrate_cap, kernel=kernel, use_kernels=use_kernels,
+        n_fixed=n_fixed, periodic=periodic, compute_energy=compute_energy,
+        xsph=xsph, density_renorm=density_renorm,
+        surface_tension=surface_tension, spill=spill,
+        density_mode=density_mode, delta_sph=delta_sph,
+        _traced_dt=_traced_dt,
+    )
+
+
+def _names(n_dec):
+    """The builder and the partitioner of a decomposition of ``n_dec``
+    axes, for the errors."""
+    if n_dec == 1:
+        return "make_distributed_step_fn", "distribute_state"
+    return ("make_distributed%dd_step_fn" % n_dec,
+            "distribute_state_%dd" % n_dec)
+
+
+def _axis_names(axes):
+    """``"y"``, ``"x and y"``, ``"x, y and z"``: grid axes, for the
+    errors."""
+    names = ["xyz"[a] for a in axes]
+    return " and ".join(filter(None, [", ".join(names[:-1]), names[-1]]))
+
+
+def _decomposed_step(grid, params, mesh, axes, capacity=None,
+                     migrate_cap=None, kernel=WendlandC2, use_kernels="auto",
+                     n_fixed=0, periodic=False, compute_energy=False,
+                     xsph=0.0, density_renorm=False, surface_tension=0.0,
+                     spill="auto", density_mode="summation", delta_sph=0.1,
+                     _traced_dt=False):
+    """The staged step of every decomposition: ``mesh`` cuts the grid
+    axes ``axes`` (increasing: ``(0,)`` x-slabs, ``(1,)`` y-slabs, ``(0,
+    1)`` the 2-D and ``(0, 1, 2)`` the 3-D blocks) into
+    ``mesh.shape[i]`` blocks along ``axes[i]``.  Arguments, ranges and
+    result as :func:`make_distributed_step_fn`'s."""
+    n_dec = len(axes)
+    builder, distribute = _names(n_dec)
+    shape = tuple(mesh.shape)
+    if len(shape) != n_dec:
+        raise ValueError("%s needs a %d-D mesh, got shape %r"
+                         % (builder, n_dec, shape))
+    dims = tuple(grid.dims)
+    if any(dims[a] % s for a, s in zip(axes, shape)):
+        raise ValueError(
+            "grid dims %s must be multiples of the mesh shape %s"
+            % (tuple(dims[a] for a in axes), shape))
+    if capacity is None:
+        raise ValueError("pass capacity (slots a shard; %s returns it)"
+                         % distribute)
     continuity = _check_options(xsph, surface_tension, density_mode,
                                 density_renorm)
-
+    periodic = bool(periodic)
+    if periodic and min(dims[a] for a in axes) < 3:
+        raise ValueError("periodic needs >= 3 cells along %s"
+                         % _axis_names(axes))
     devices = tuple(mesh.devices)
-    n_sh = len(devices)
-    nx, ny, nz = grid.dims
-    if nx % n_sh != 0:
-        raise ValueError(
-            "grid nx=%d must be a multiple of the mesh size %d" % (nx, n_sh)
-        )
-    if capacity is None:
-        raise ValueError(
-            "pass capacity (slots a shard; distribute_state returns it)"
-        )
-    if periodic and nx < 3:
-        raise ValueError("periodic needs >= 3 cells along x")
     _check_device_type(devices)
     xchg = Exchange(mesh)
     local = xchg.local
     phase = get_tracer().range
-    nxl = nx // n_sh
-    nynz = ny * nz
-    c = nxl * nynz
+    n_sh = len(devices)
     cap = int(capacity)
     mig_cap = int(migrate_cap) if migrate_cap is not None else max(8, cap // 4)
     k = grid.capacity
     cell = grid.cell_size
 
-    # the extended (ghost-padded) grid of a slab, on which the pair
-    # passes run; only its core planes' outputs are used
-    ext_grid = CellGrid(
-        lo=(0.0, 0.0, 0.0), cell_size=cell, dims=(nxl + 2, ny, nz), capacity=k
-    )
-    local_grid = ext_grid._replace(dims=(nxl, ny, nz))
+    parts = [shape[axes.index(a)] if a in axes else 1 for a in range(3)]
+    bdims = tuple(n // p for n, p in zip(dims, parts))
+    edims = tuple(b + 2 if a in axes else b for a, b in enumerate(bdims))
+    c = int(np.prod(bdims))
+    # the extended (ghost-padded) grid of a block, on which the pair
+    # passes run; only its core cells' outputs are used
+    ext_grid = CellGrid(lo=(0.0, 0.0, 0.0), cell_size=cell, dims=edims,
+                        capacity=k)
+    local_grid = ext_grid._replace(dims=bdims)
     use_kernels, spill = resolve_policy(devices[0].type, ext_grid,
                                         use_kernels, spill)
     resolved = {"use_kernels": use_kernels, "spill": spill,
                 "density_mode": density_mode}
     n_tiers = 2 if spill else 1
     kd = n_tiers * k  # retained slots a cell
-    core = slice(nynz, nynz + c)
-    periodic = bool(periodic)
     wrap = _wrap_axes(grid, periodic)
-    # x wraps through the ring; only the local y/z wraps reach the passes
-    pair_wrap = (False, bool(wrap[1]), bool(wrap[2]))
-    pair_wrap = pair_wrap if periodic and any(pair_wrap) else None
+    rings = [periodic and bool(wrap[a]) for a in axes]
+    # the decomposed axes wrap through the rings; only the others reach
+    # the pair passes
+    pair_wrap = tuple(periodic and bool(wrap[a]) and a not in axes
+                      for a in range(3))
     passes = _pair_passes(ext_grid, params, kernel, use_kernels, spill,
                           continuity, delta_sph, xsph > 0, surface_tension,
-                          pair_wrap)
+                          pair_wrap if any(pair_wrap) else None)
+
+    index = [np.unravel_index(d, shape) for d in range(n_sh)]
+    neighbours = [[_block_neighbours(index[d], shape, i, rings[i])
+                   for d in range(n_sh)] for i in range(n_dec)]
 
     # host constants of each shard, in float32 as the reference forms
     # them, made on its device now (no host-to-device copy in the step)
     lo_np = np.asarray(grid.lo, np.float32)
     hi_np = lo_np + cell * np.asarray(grid.dims, np.float32)
-    offs = [np.float32(np.float32(d * nxl) * np.float32(cell))
-            for d in range(n_sh)]
-    slab_lo = [float(lo_np[0] + off) for off in offs]
-    slab_hi = [float(np.float32(lo) + np.float32(nxl * cell))
-               for lo in slab_lo]
-    lx = float(np.float32(cell * nx))
-    lo_local = [
-        torch.from_numpy(lo_np + np.asarray([off, 0.0, 0.0], np.float32)).to(
-            devices[d]) if d in local else None
-        for d, off in enumerate(offs)
-    ]
+    offs = np.zeros((n_sh, 3), np.float32)
+    for d in range(n_sh):
+        for i, a in enumerate(axes):
+            offs[d, a] = (np.float32(index[d][i] * bdims[a])
+                          * np.float32(cell))
+    bounds = [[(float(lo_np[a] + offs[d, a]),
+                float(np.float32(lo_np[a] + offs[d, a])
+                      + np.float32(bdims[a] * cell)))
+               for d in range(n_sh)] for a in axes]
+    period = [float(np.float32(cell * dims[a])) for a in range(3)]
+    lo_local = [torch.from_numpy(lo_np + offs[d]).to(devices[d])
+                if d in local else None for d in range(n_sh)]
     lo = _per_device(devices, local, lambda d: torch.from_numpy(lo_np).to(d))
     hi = _per_device(devices, local, lambda d: torch.from_numpy(hi_np).to(d))
     gravity = _per_device(devices, local, lambda d: torch.from_numpy(
@@ -455,15 +599,29 @@ def make_distributed_step_fn(
                           lambda d: torch.from_numpy(wrap).to(d))
     fill = _fill(params, continuity, xsph, compute_energy)
 
-    def tiers_of(ext):
-        """Per tier ``(x, v, rho or None, live)`` of one shard's extended
-        ``[T, F, C_ext, K]`` layout; every plane contiguous."""
-        return [(e[0:3], e[3:6], e[6] if continuity else None, e[-1] > 0.5)
-                for e in ext]
+    def halo(cores):
+        return _block_halo(cores, bdims, axes, neighbours, xchg)
+
+    def core(a, axis=-2):
+        return _block_core(a, edims, axes, axis)
+
+    def shift_seams(ext):
+        """On a ring, the ghost layers across the seam arrived with raw
+        coordinates: shift them by -+L (the whole layer, the corner
+        columns received from the other axes included)."""
+        for d, e in zip(local, ext):
+            v = e.view(e.shape[:2] + edims + (e.shape[-1],))
+            for i, a in enumerate(axes):
+                if not rings[i]:
+                    continue
+                if index[d][i] == 0:
+                    v.narrow(2 + a, 0, 1)[:, a] -= period[a]
+                if index[d][i] == shape[i] - 1:
+                    v.narrow(2 + a, edims[a] - 1, 1)[:, a] += period[a]
 
     def body(state, dt):
         _check_state(state, [devices[d] for d in local], cap, continuity,
-                     "distribute_state")
+                     distribute)
         # every per-shard list below runs over this process's shards:
         # entry i is shard local[i]
         xs, vs, pids = state.x, state.v, state.pid
@@ -476,8 +634,8 @@ def make_distributed_step_fn(
         with phase("mesh.cells"):
             cells, dense = [], []
             for i, d in enumerate(local):
-                cl = _local_cells(xs[i], alive[i], nxl, ny, nz, kd,
-                                  lo_local[d], cell)
+                cl = _local_cells(xs[i], alive[i], *bdims, kd, lo_local[d],
+                                  cell)
                 cols = [xs[i], vs[i]]
                 if continuity:
                     cols.append(state.rho[i][:, None])
@@ -486,18 +644,14 @@ def make_distributed_step_fn(
                 dense.append(_scatter(torch.cat(cols, dim=1), cl, c, k,
                                       n_tiers))
 
-        # stage 2: one plane of cells each way; on the ring the far end's
-        # planes arrive with raw coordinates, shifted by -+Lx here so
-        # every ghost position is geometrically true
+        # stage 2: the ordered halo, then the seam shifts
         with phase("mesh.halo"):
-            ext = _halo_exchange(dense, nynz, periodic, xchg)
+            ext = halo(dense)
             del dense
-            if periodic:
-                if local[0] == 0:
-                    ext[0][:, 0, :nynz] -= lx
-                if local[-1] == n_sh - 1:
-                    ext[-1][:, 0, nynz + c:] += lx
-            tiers = [tiers_of(e) for e in ext]
+            if any(rings):
+                shift_seams(ext)
+            tiers = [[(e[0:3], e[3:6], e[6] if continuity else None,
+                       e[-1] > 0.5) for e in et] for et in ext]
 
         # stage 3: density and pressure of every slot of the extended grid
         with phase("mesh.density"):
@@ -508,16 +662,16 @@ def make_distributed_step_fn(
             else:
                 # only core outputs are right (a ghost cell's neighbourhood
                 # reaches past the halo): the owners' floored density and
-                # pressure of the boundary planes replace the ghosts'
+                # pressure replace the ghosts'
                 rp_core = []
                 for tt in tiers:
                     rho_t = passes.density(tt)
                     rp_core.append(torch.stack([
-                        torch.stack(_floor_density(r[core], t[3][core], params,
-                                                   density_renorm))
+                        torch.stack(_floor_density(core(r), core(t[3]),
+                                                   params, density_renorm))
                         for r, t in zip(rho_t, tt)
                     ]))  # [T, 2, c, K]
-                rp_ext = _halo_exchange(rp_core, nynz, periodic, xchg)
+                rp_ext = halo(rp_core)
                 del rp_core
                 rho_p = [
                     [(torch.where(t[3], rp[0], params.rho0),
@@ -532,9 +686,9 @@ def make_distributed_step_fn(
             mom = [passes.momentum(f) for f in fields]
             if surface_tension > 0:
                 # as density, a ghost's normals are the owner's
-                n_core = [torch.stack([n[:, core] for n in passes.normals(f)])
+                n_core = [torch.stack([core(n) for n in passes.normals(f)])
                           for f in fields]  # [T, 3, c, K]
-                n_ext = _halo_exchange(n_core, nynz, periodic, xchg)
+                n_ext = halo(n_core)
                 del n_core
                 for i, f in enumerate(fields):
                     ns = [torch.where(t[4], n, 0.0)
@@ -544,7 +698,7 @@ def make_distributed_step_fn(
             energy = ([passes.energy(f) for f in fields] if compute_energy
                       else None)
 
-            # ... the core planes' results to particle rows, and the
+            # ... the core cells' results to particle rows, and the
             # integration
             new, a2 = [], []
             for i, d in enumerate(local):
@@ -558,56 +712,36 @@ def make_distributed_step_fn(
                                      dts[i], a2))
             del mom, fields, tiers, ext, rho_p
 
-        # stage 5: pack the migrants of every shard
+        # stage 5: one migration hop a decomposed axis, in axis order
         with phase("mesh.migrate"):
-            packs = [migrants(d, pids[i], *new[i][:5])
-                     for i, d in enumerate(local)]
+            rows = [(vals, pid, 0) for vals, pid, _aux in new]
+            for i, a in enumerate(axes):
+                rows = _migrate_axis(rows, a, neighbours[i], bounds[i],
+                                     rings[i], float(lo_np[a]), period[a],
+                                     mig_cap, xchg)
+            out_x = tuple(vals[:, 0:3].contiguous() for vals, _, _ in rows)
+            out_v = tuple(vals[:, 3:6].contiguous() for vals, _, _ in rows)
+            out_pid = tuple(pid for _, pid, _ in rows)
+            if continuity:
+                # a migrant's density arrived in its payload: state and
+                # aux stay aligned with the slots they describe
+                out_rho = tuple(torch.where(pid >= 0, vals[:, 6], params.rho0)
+                                for vals, pid, _ in rows)
+                aux_rho = out_rho
+                aux_p = tuple(torch.where(pid >= 0, tait_pressure(r, params),
+                                          0.0)
+                              for r, pid in zip(out_rho, out_pid))
+            else:
+                aux_rho = tuple(nd[2][0] for nd in new)
+                aux_p = tuple(nd[2][1] for nd in new)
 
-            # stage 6: exchange (a shard receives its left neighbour's
-            # right-going buffers and its right neighbour's left-going ones)
-            # and insert
-            got = xchg([{"L": pk["right"], "R": pk["left"]} for pk in packs],
-                       [dict(zip("LR", _neighbours(d, n_sh, periodic)))
-                        for d in range(n_sh)])
-            out_x, out_v, out_pid, out_rho, out_p, migrate_ovf = ([] for _ in
-                                                                   range(6))
-            for pk, g in zip(packs, got):
-                keep, keep_pid, alive_after, send_ovf = pk["keep"]
-                recv = [_empty_buffers(keep, keep_pid) if g[key] is None
-                        else g[key] for key in "LR"]
-                recv_vals = torch.cat([recv[0][0], recv[1][0]])
-                recv_pid = torch.cat([recv[0][1], recv[1][1]])
-                recv_valid = torch.cat([recv[0][2], recv[1][2]])
-                (vals, pid_out), lost = _insert([keep, keep_pid], alive_after,
-                                                [recv_vals, recv_pid],
-                                                recv_valid)
-                out_x.append(vals[:, 0:3].contiguous())
-                out_v.append(vals[:, 3:6].contiguous())
-                out_pid.append(pid_out)
-                live = pid_out >= 0
-                if continuity:
-                    # a migrant's density arrived in its payload: state and
-                    # aux stay aligned with the slots they describe
-                    rho = torch.where(live, vals[:, 6], params.rho0)
-                    out_rho.append(rho)
-                    out_p.append(torch.where(live, tait_pressure(rho, params),
-                                             0.0))
-                migrate_ovf.append(send_ovf + lost)
-
-        if continuity:
-            aux_rho, aux_p = out_rho, out_p
-        else:
-            aux_rho = [nd[5] for nd in new]
-            aux_p = [nd[6] for nd in new]
-        new_state = DistState(
-            x=tuple(out_x), v=tuple(out_v), pid=tuple(out_pid),
-            rho=tuple(out_rho) if continuity else None,
-        )
+        new_state = DistState(x=out_x, v=out_v, pid=out_pid,
+                              rho=out_rho if continuity else None)
         aux = DistAux(
-            rho=tuple(aux_rho), p=tuple(aux_p),
+            rho=aux_rho, p=aux_p,
             cell_overflow=tuple(cl.overflow for cl in cells),
-            migrate_overflow=tuple(migrate_ovf),
-            dudt=tuple(nd[7] for nd in new),
+            migrate_overflow=tuple(ovf for _, _, ovf in rows),
+            dudt=tuple(nd[2][2] for nd in new),
         )
         xchg.count_step()
         if _traced_dt:
@@ -616,48 +750,25 @@ def make_distributed_step_fn(
 
     @torch.inference_mode()
     def step(state, dt=params.dt):
-        if not _ranged:  # the axis-swapped step opens the range itself
-            return body(state, dt)
         with phase("mesh.step"):
             return body(state, dt)
 
     def integrate(d, out, x, v, pid, alive, rho_in, dt, a2):
-        return _integrate_rows(
-            out, x, v, pid, alive, rho_in, dt, params, gravity[d], lo[d],
-            hi[d], wrapped[d] if periodic else None, continuity, xsph,
-            compute_energy, n_fixed, a2 if _traced_dt else None)
-
-    def migrants(d, pid, x_new, v_new, x_raw, rho, alive):
-        """Stage 5 of shard ``d``: the particles that left its slab
-        (detected on the unwrapped x), packed right and left, and the
-        rows it keeps."""
-        go_left = alive & (x_raw[:, 0] < slab_lo[d])
-        go_right = alive & (x_raw[:, 0] >= slab_hi[d])
-        if not periodic:
-            if d == 0:
-                go_left = torch.zeros_like(go_left)
-            if d == n_sh - 1:
-                go_right = torch.zeros_like(go_right)
-        # the payload carries the wrapped x (right on the receiving
-        # slab); a particle kept back by send-side overflow keeps its raw
-        # x and re-detects the crossing next step, while the local y/z
-        # wraps always commit
+        """The gathered rows ``out`` of shard ``d`` -> ``(vals, pid,
+        (rho_aux, p_aux, dudt))``: ``vals`` x | v | (rho) after the
+        global step's integration, the coordinates raw on the decomposed
+        axes (the hops detect a crossing on them, and wrap them on a
+        ring) and wrapped on the locally wrapped ones."""
+        x_new, v_new, x_raw, rho, _alive, rho_aux, p_aux, dudt = (
+            _integrate_rows(out, x, v, pid, alive, rho_in, dt, params,
+                            gravity[d], lo[d], hi[d],
+                            wrapped[d] if periodic else None, continuity,
+                            xsph, compute_energy, n_fixed,
+                            a2 if _traced_dt else None))
+        cols = [(x_raw if a in axes else x_new)[:, a:a + 1] for a in range(3)]
         extra = [rho[:, None]] if continuity else []
-        payload = torch.cat([x_new, v_new] + extra, dim=1)
-        buf_r, valid_r, ovf_r, sent_r = _pack_migrants([payload, pid],
-                                                       go_right, mig_cap)
-        buf_l, valid_l, ovf_l, sent_l = _pack_migrants([payload, pid],
-                                                       go_left, mig_cap)
-        pid_after = torch.where(sent_r | sent_l, -1, pid)
-        alive_after = pid_after >= 0
-        x_keep = torch.cat([x_raw[:, 0:1], x_new[:, 1:3]], dim=1)
-        keep = torch.cat([x_keep, v_new] + extra, dim=1)
-        keep = torch.where(alive_after[:, None], keep, 0.0)
-        return {
-            "right": buf_r + [valid_r],
-            "left": buf_l + [valid_l],
-            "keep": (keep, pid_after, alive_after, ovf_r + ovf_l),
-        }
+        return (torch.cat(cols + [v_new] + extra, dim=1), pid,
+                (rho_aux, p_aux, dudt))
 
     step.resolved = resolved
     return step
@@ -829,39 +940,6 @@ def _pair_passes(grid, params, kernel, use_kernels, spill, continuity,
     )
 
 
-def _swapped_step(grid, params, mesh, _traced_dt=False, **kw):
-    """``decomp_axis=1``: the x machinery on the axis-swapped problem
-    (SPH is isotropic, so swapping the x and y of the grid, gravity and
-    state is exact), one column permutation a shard each way."""
-    inner = make_distributed_step_fn(
-        grid._replace(lo=_swap01_tuple(grid.lo),
-                      dims=_swap01_tuple(grid.dims)),
-        params._replace(gravity=_swap01_tuple(tuple(params.gravity))),
-        mesh, decomp_axis=0, _traced_dt=_traced_dt, _ranged=False, **kw,
-    )
-    phase = get_tracer().range
-    local = mesh.local
-    perm = _per_device(tuple(mesh.devices), local, lambda d: torch.tensor(
-        _PERM01, dtype=torch.int64, device=d))
-    perm = [perm[d] for d in local]
-
-    def swapped(state):
-        # rho is a scalar field: unchanged by the swap
-        return state._replace(
-            x=tuple(t.index_select(1, p) for t, p in zip(state.x, perm)),
-            v=tuple(t.index_select(1, p) for t, p in zip(state.v, perm)),
-        )
-
-    def step(state, dt=params.dt):
-        # |acc| is invariant under the swap: a2max passes straight through
-        with phase("mesh.step"):
-            out = inner(swapped(state), dt)
-            return (swapped(out[0]),) + tuple(out[1:])
-
-    step.resolved = inner.resolved
-    return step
-
-
 def make_adaptive_distributed_step_fn(grid, params, mesh, cfl=0.25,
                                       dt_min=0.0, dt_max=None, **kwargs):
     """CFL-adaptive variant of the decomposed step: the controller of
@@ -940,32 +1018,31 @@ def distribute_state(state, grid, mesh, capacity=None, decomp_axis=0):
         every process passes the whole state (as the reference's workers
         hold it) and gets its own shards.
     """
-    n_sh = mesh.size
-    nxl = grid.dims[decomp_axis] // n_sh
-    x = _host(state.x).astype(np.float32, copy=False)
-    slab_width = nxl * grid.cell_size
-    owner = np.clip(
-        ((x[:, decomp_axis] - grid.lo[decomp_axis]) // slab_width).astype(
-            np.int64
-        ),
-        0,
-        n_sh - 1,
-    )
-    return _partition(state._replace(x=x), owner, mesh, capacity, "slab")
+    return _distribute(state, grid, mesh, (decomp_axis,), capacity)
 
 
-def _partition(state, owner, mesh, capacity, unit):
-    """Place each particle of ``state`` on the shard ``owner`` names (an
-    ``[N]`` numpy array), in original-index ``pid`` order, the other
-    slots dead, and put this process's shards on their devices;
-    ``capacity`` defaults to the smallest multiple of 8 at least twice the
-    largest shard population -> ``(DistState, capacity)``.  Shared by
-    every decomposition (``unit`` names a shard's region in the error)."""
+def _distribute(state, grid, mesh, axes, capacity):
+    """Place each particle of ``state`` on the shard whose block (of the
+    engine's cut of the grid axes ``axes``) holds it, in original-index
+    ``pid`` order, the other slots dead, and put this process's shards on
+    their devices; ``capacity`` defaults to the smallest multiple of 8 at
+    least twice the largest shard population -> ``(DistState,
+    capacity)``.  Shared by every decomposition."""
+    shape = tuple(mesh.shape)
+    if len(shape) != len(axes):
+        raise ValueError("%s needs a %d-D mesh, got shape %r"
+                         % (_names(len(axes))[1], len(axes), shape))
     devices = mesh.devices
     n_sh = len(devices)
     x = _host(state.x).astype(np.float32, copy=False)
     v = _host(state.v).astype(np.float32, copy=False)
     rho = None if state.rho is None else _host(state.rho)
+    block = []
+    for a, s in zip(axes, shape):
+        width = grid.dims[a] // s * grid.cell_size
+        block.append(np.clip(((x[:, a] - grid.lo[a]) // width).astype(
+            np.int64), 0, s - 1))
+    owner = np.ravel_multi_index(block, shape)
     pops = np.bincount(owner, minlength=n_sh)
     if capacity is None:
         capacity = int(-(-2 * max(int(pops.max()), 1) // 8) * 8)
@@ -979,7 +1056,8 @@ def _partition(state, owner, mesh, capacity, unit):
         if len(sel) > capacity:
             raise ValueError(
                 "shard %d %s holds %d particles > capacity %d"
-                % (d, unit, len(sel), capacity)
+                % (d, "slab" if len(axes) == 1 else "block", len(sel),
+                   capacity)
             )
         xs[d, : len(sel)] = x[sel]
         vs[d, : len(sel)] = v[sel]

@@ -3,16 +3,15 @@
 
 Shard ``(i, j, k)`` of a :func:`~tpgsd_torch.parallel.make_mesh3d` mesh
 (shard ``(i * py + j) * pz + k``) owns the ``nxl x nyl x nzl`` cell block
-at block coordinates ``(i, j, k)``.  It is the 2-D form's block engine
-(:mod:`tpgsd_torch.sph.distributed2d`) with z decomposed too: the halo
+at block coordinates ``(i, j, k)``.  It is the decomposition engine of
+:mod:`tpgsd_torch.sph.distributed` cutting x, y and z: the halo
 goes z, then y, then x, so all 26 neighbours' boundary cells arrive; a
 particle hops x, then y, then z, so a corner mover arrives in one step;
 every periodic axis wraps through its ring (no axis wraps locally, and
 the pair passes see no wrap).
 """
 
-from .distributed import _adaptive_step
-from .distributed2d import _distribute_blocks, _make_block_step
+from .distributed import _adaptive_step, _decomposed_step, _distribute
 from .kernels import WendlandC2
 
 
@@ -47,13 +46,13 @@ def make_distributed3d_step_fn(
         ``step(state, dt=params.dt) -> (DistState, DistAux)`` with
         ``step.resolved``; no host sync.
     """
-    return _make_block_step(
-        grid, params, mesh, 3, "make_distributed3d_step_fn",
-        capacity=capacity, migrate_cap=migrate_cap, kernel=kernel,
-        use_kernels=use_kernels, n_fixed=n_fixed, periodic=periodic,
-        compute_energy=compute_energy, xsph=xsph,
-        density_renorm=density_renorm, surface_tension=surface_tension,
-        spill=spill, density_mode=density_mode, delta_sph=delta_sph,
+    return _decomposed_step(
+        grid, params, mesh, (0, 1, 2), capacity=capacity,
+        migrate_cap=migrate_cap, kernel=kernel, use_kernels=use_kernels,
+        n_fixed=n_fixed, periodic=periodic, compute_energy=compute_energy,
+        xsph=xsph, density_renorm=density_renorm,
+        surface_tension=surface_tension, spill=spill,
+        density_mode=density_mode, delta_sph=delta_sph,
         _traced_dt=_traced_dt,
     )
 
@@ -73,4 +72,4 @@ def distribute_state_3d(state, grid, mesh, capacity=None):
     :func:`~tpgsd_torch.sph.distributed2d.distribute_state_2d` (shard
     ``(i * py + j) * pz + k`` holds block ``(i, j, k)``) -> ``(DistState,
     capacity)``."""
-    return _distribute_blocks(state, grid, mesh, 3, capacity)
+    return _distribute(state, grid, mesh, (0, 1, 2), capacity)
